@@ -1,0 +1,137 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+All `csrc/*.cu` files are compiled by nvcc into one shared library with a
+plain C interface (sm_90a), loaded with ctypes. The library's file name
+carries a hash of the sources and flags, so a stale build is never loaded.
+The build runs at the first launch on a CUDA tensor, under an flock so
+parallel processes do not link over each other; importing this module
+builds nothing.
+
+Each C entry point launches one kernel on the given stream and returns
+`cudaGetLastError()`; `launch` raises when that is not 0 and otherwise
+adds one to the kernel's count in `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argtypes (pointers and the stream as c_void_p)
+_SIGNATURES = {
+    "sponge": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "mask_limbs": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ball": [_P, _P, _P, _I, _I, _I, _P],
+    "ntt": [_P, _P, _I, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _P],
+}
+
+# launches per kernel since the last reset_launches()
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for any other
+    device (there is no plain path to fall back to there)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise NotImplementedError(f"no kernel for device {t.device}")
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libdilithium_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the hashed library unless it exists; return
+    its path. The compiler's output is kept beside it as `<lib>.log`."""
+    import fcntl
+
+    path = library_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock_f:
+        fcntl.flock(lock_f, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                cus = [s for s in _sources() if s.endswith(".cu")]
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                    capture_output=True, text=True,
+                )
+                with open(path + ".log", "w") as log:
+                    log.write(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+                    )
+                os.replace(tmp, path)
+        finally:
+            fcntl.flock(lock_f, fcntl.LOCK_UN)
+    return path
+
+
+@lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, "dk_" + name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    return lib
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` through its C entry point and count it."""
+    err = getattr(library(), "dk_" + name)(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
