@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's one-key Dilithium signing path on one CUDA card.
+"""Drive the PyTorch port's one-key Dilithium signing path and its kernel
+micro-bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -16,9 +17,20 @@ line):
      build_operators -> MxuSigner over Q = 16384 mu at W = 768; every
      kernel must have launched, every signature must be ok and verify under
      the C++ oracle, and 512 must equal the oracle's signatures and
-     attempts. Prints signs/s over timed runs after a warm-up run.
-Then one JSON line with the kernels' launch counts, errors and times, the
-card line again, and last {"ok": true, "device": {...}}.
+     attempts. Prints signs/s over timed runs after a warm-up run;
+  6. the kernel-bench path: K5 (permutation), K6 (plane-major sponge) and
+     K7 (bit-plane SampleInBall) against their plain versions, bit-equal,
+     K6 also against K1 and K7 against K3; then
+     `dilithium_tpu_torch.bench_kernels` at full width, counted: K5, K6
+     and K7 must have launched.
+Then one JSON line with every kernel's launches (phase 5 for K1-K4,
+phase 6 for K5-K7), error, time, plain time and bound, the card line
+again, and last {"ok": true, "device": {...}}.
+
+A kernel's bound is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its 32-bit integer instructions
+over 64 a clock on each SM at the card's maximum SM clock (nvidia-smi
+clocks.max.sm); a Keccak-f[1600] counts PERM_OPS instructions.
 
 Needs no network and imports nothing of JAX; the C++ oracle (cpp/) is
 built with make on first use.
@@ -38,13 +50,61 @@ import torch
 SEED = 2026
 Q_MAIN, W_MAIN = 16384, 768
 N_ORACLE_SIGN = 512
+N_STATES, N_POLYS = 131072, 65536  # the kernel bench's full width
 
 KERNELS = {
     "sponge": ("dilithium_tpu_torch/csrc/sponge.cu", "dilithium_tpu/ops/keccak_pallas.py:217"),
     "mask_limbs": ("dilithium_tpu_torch/csrc/mask_limbs.cu", "dilithium_tpu/ops/keccak_pallas.py:172"),
     "ball": ("dilithium_tpu_torch/csrc/ball.cu", "dilithium_tpu/ops/ball_pallas.py:80"),
     "ntt": ("dilithium_tpu_torch/csrc/ntt.cu", "dilithium_tpu/ops/ntt_pallas.py:177"),
+    "permute": ("dilithium_tpu_torch/csrc/permute.cu", "dilithium_tpu/ops/keccak_pallas.py:43"),
+    "sponge_planes": ("dilithium_tpu_torch/csrc/sponge_planes.cu", "tools/xof_exp.py:68"),
+    "ball_bitplane": ("dilithium_tpu_torch/csrc/ball_bitplane.cu", "tools/ball_exp.py:102"),
 }
+MAIN_KERNELS = ("sponge", "mask_limbs", "ball", "ntt")
+BENCH_KERNELS = ("permute", "sponge_planes", "ball_bitplane")
+
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_PER_SM_CLOCK = 64  # 32-bit integer lanes per SM (Hopper)
+# 32-bit instructions of one Keccak-f[1600] with 3-input logic (LOP3) and
+# 64-bit rotates as two funnel shifts, per round: theta's column parities
+# 20, its five rotates 10, its 25 lane updates 50, rho 48, chi 50, iota 2
+PERM_OPS = 24 * 180
+# a Shoup butterfly: 3 multiplies and 6 adds, subtracts and selects
+BUTTERFLY_OPS = 9
+
+
+def sponge_work(batch: int, msg_len: int, out_bytes: int, rate: int):
+    """(bytes, ops) of a sponge over [batch, msg_len] -> out_bytes."""
+    perms = msg_len // rate + 1 + -(-out_bytes // rate) - 1
+    return batch * (msg_len + out_bytes), batch * perms * PERM_OPS
+
+
+def ntt_work(batch: int, inverse: bool):
+    """(bytes, ops) of batch NTTs: 8 x 128 butterflies, and the inverse's
+    256 scaling products (4 ops each)."""
+    return batch * 2 * 256 * 4, batch * (8 * 128 * BUTTERFLY_OPS + (256 * 4 if inverse else 0))
+
+
+def ball_work(batch: int, nbytes: int):
+    """(bytes, ops) of SampleInBall: the stream read, c (int32) and ok
+    written; ops count one per output coefficient only (a lower bound)."""
+    return batch * (nbytes + 256 * 4 + 1), batch * 256
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def bound(work, int_ops_per_s: float):
+    """(bound_ms, bound_by) of (bytes, ops)."""
+    nbytes, ops = work
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / int_ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def card_line() -> str:
@@ -80,6 +140,22 @@ def max_abs_err(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().cpu())
 
 
+def comparer(phase: str, rows: list):
+    """compare(kernel, label, fn, plain_fn, work, primary): check fn
+    against plain_fn bit for bit, time both, and append a row."""
+    def compare(kernel, label, fn, plain_fn, work, primary=False):
+        got, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+        print(f"{phase}: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if err != 0.0:
+            raise AssertionError(f"{kernel} {label} differs from its plain version")
+        rows.append({"kernel": kernel, "shape": label, "err": err, "ms": ms,
+                     "plain_ms": plain_ms, "work": work, "primary": primary})
+    return compare
+
+
 def check_kernels(rng, dev):
     """Phase 3: kernel vs plain version at the main path's shapes."""
     from dilithium_tpu_torch.params import get_params
@@ -87,16 +163,7 @@ def check_kernels(rng, dev):
 
     p = get_params(3)
     rows = []
-
-    def compare(kernel, label, fn, plain_fn, primary=False):
-        got, ref = fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, ref)
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        print(f"phase 3: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if err != 0.0:
-            raise AssertionError(f"{kernel} {label} differs from its plain version")
-        rows.append((kernel, label, err, ms, plain_ms, primary))
+    compare = comparer("phase 3", rows)
 
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
@@ -115,19 +182,21 @@ def check_kernels(rng, dev):
         compare("sponge", f"{label} [{b}, {n}] -> {out}",
                 lambda: keccak.sponge(msg, out, rate, 0x1F),
                 lambda: keccak.sponge_plain(msg, out, rate, 0x1F),
-                primary=label == "c_tilde")
+                sponge_work(b, n, out, rate), primary=label == "c_tilde")
 
     rp = u8(W_MAIN, 64)
     kappa = torch.from_numpy(rng.integers(0, 400, W_MAIN).astype(np.int32) * p.L).to(dev)
     compare("mask_limbs", f"W={W_MAIN}",
             lambda: sampling.expand_mask_limbs(rp, kappa, p),
-            lambda: sampling.mask_limbs_plain(rp, kappa, p), primary=True)
+            lambda: sampling.mask_limbs_plain(rp, kappa, p),
+            (W_MAIN * (64 + 4 + 3 * p.L * 256),
+             W_MAIN * p.L * sponge_work(1, 66, p.polyz_packedbytes, 136)[1]), primary=True)
 
     stream = keccak.sponge_plain(u8(W_MAIN, 32), 272, 136, 0x1F)
     stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
 
     compare("ball", f"B={W_MAIN}", lambda: sampling.sample_in_ball_stream(stream, p.tau),
-            lambda: sampling.sample_in_ball_plain(stream, p.tau), primary=True)
+            lambda: sampling.sample_in_ball_plain(stream, p.tau), ball_work(W_MAIN, 272), primary=True)
 
     def coeffs(b):
         return torch.from_numpy(rng.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
@@ -140,7 +209,8 @@ def check_kernels(rng, dev):
         ("forward [4096, 256]", coeffs(4096), ntt.ntt, ntt.ntt_plain, False),
         ("inverse product [4096, 256]", coeffs(4096), ntt.invntt, ntt.invntt_plain, False),
     ]:
-        compare("ntt", label, lambda: fn(x), lambda: plain_fn(x), primary)
+        compare("ntt", label, lambda: fn(x), lambda: plain_fn(x),
+                ntt_work(x.shape[0], "inverse" in label), primary)
     return rows
 
 
@@ -169,8 +239,7 @@ def check_small_slice(rng, dev):
 
 def main_path(rng, dev):
     """Phase 5: the main path at full size, counted, checked and timed."""
-    from dilithium_tpu import oracle
-    from dilithium_tpu_torch import _kernels, mxu, scheme
+    from dilithium_tpu_torch import _kernels, mxu, oracle, scheme
     from dilithium_tpu_torch.params import get_params
 
     p = get_params(3)
@@ -190,7 +259,7 @@ def main_path(rng, dev):
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0 - t_key
     launches = dict(_kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")
 
@@ -224,6 +293,74 @@ def main_path(rng, dev):
     return launches
 
 
+def check_bench_path(rng, dev):
+    """Phase 6: K5-K7 against their plain versions (K6 also against K1,
+    K7 against K3), then the kernel bench at full width, counted."""
+    from dilithium_tpu_torch import _kernels, bench_kernels
+    from dilithium_tpu_torch.ops import keccak, sampling
+    from dilithium_tpu_torch.params import SHAKE256_RATE, get_params
+    from dilithium_tpu_torch.tools import ball_exp, xof_exp
+
+    rows = []
+    compare = comparer("phase 6", rows)
+
+    def lanes(b):
+        return torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, (b, 25), dtype=np.int64)).to(dev)
+
+    planes = lanes(N_STATES).t().contiguous()
+    compare("permute", f"planes [25, {N_STATES}]", lambda: keccak.keccak_f1600_planes(planes),
+            lambda: keccak.keccak_f1600_plain(planes.t().contiguous()).t(),
+            (N_STATES * 400, N_STATES * PERM_OPS), primary=True)
+    st = lanes(16421)  # a batch that is not a multiple of the block
+    compare("permute", "[16421, 25]", lambda: keccak.keccak_f1600(st),
+            lambda: keccak.keccak_f1600_plain(st), (st.shape[0] * 400, st.shape[0] * PERM_OPS))
+
+    xb = bench_kernels.XOF_BATCH
+    msgs = torch.from_numpy(rng.integers(0, 256, (xb, 66), dtype=np.uint8)).to(dev)
+    xp = xof_exp.planes_for(msgs, SHAKE256_RATE)
+    rate_w = SHAKE256_RATE // 8
+    compare("sponge_planes", f"[{xp.shape[0]}, {xb}] -> [{xb}, 160]",
+            lambda: xof_exp.shake_words_batchmajor(xp, 160, rate_w),
+            lambda: xof_exp.shake_words_batchmajor_plain(xp, 160, rate_w),
+            (xb * (xp.shape[0] * 4 + 160 * 4), sponge_work(xb, 66, 640, SHAKE256_RATE)[1]), primary=True)
+    k1_err = max_abs_err(xof_exp.xof_bm(msgs, 160, SHAKE256_RATE), keccak.shake_words(msgs, 160, SHAKE256_RATE))
+    print(f"phase 6: sponge_planes (planes_for + K6) vs K1 shake_words [{xb}, 66] -> 160 words: max_abs_err {k1_err}")
+    if k1_err != 0.0:
+        raise AssertionError("K6 differs from K1")
+    rows[-1]["err"] = max(rows[-1]["err"], k1_err)
+
+    p = get_params(3)
+    for b, primary in ((bench_kernels.BALL_BATCH, True), (W_MAIN, False)):
+        c_tilde = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
+        stream = keccak.shake256(c_tilde, p.ball_blocks * SHAKE256_RATE)
+        stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
+        compare("ball_bitplane", f"B={b}", lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
+                lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau),
+                ball_work(b, stream.shape[1]), primary=primary)
+        v1 = ball_exp.sample_in_ball_v1(stream, p.tau)
+        k3_err = max_abs_err(v1, sampling.sample_in_ball_stream(stream, p.tau))
+        print(f"phase 6: ball_bitplane vs K3 B={b}: max_abs_err {k3_err}; ok rows {int(v1[1].sum())} of {b}")
+        if k3_err != 0.0 or bool(v1[1][:4].any()):
+            raise AssertionError("K7 differs from K3, or a no-take row is ok")
+        rows[-1]["err"] = max(rows[-1]["err"], k3_err)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    res = bench_kernels.run(N_STATES, N_POLYS, dev)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    missing = [k for k in BENCH_KERNELS + ("sponge", "ball", "ntt") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernel-bench path launched no {missing} kernel")
+    ab = {f"{name} {side}": [round(x, 4) for x in ms] for name, sides in res["ab"].items()
+          for side, ms in sides.items()}
+    print(f"phase 6: bench_kernels {N_STATES} states, {N_POLYS} polys in {time.perf_counter() - t:.1f} s; "
+          f"launches {launches}; A/B ms per round {ab}; "
+          f"rows {json.dumps({k: round(v['ms'], 4) for k, v in res['rows'].items()})}")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -238,7 +375,7 @@ def main() -> int:
     lib = _kernels.build()
     _kernels.library()
     with open(lib + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        ptxas = [ln.strip() for ln in f if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"phase 2: built {lib} in {time.perf_counter() - t:.1f} s; ptxas: {' | '.join(ptxas)}")
 
     dev = torch.device("cuda", 0)
@@ -246,15 +383,25 @@ def main() -> int:
     rows = check_kernels(rng, dev)
     check_small_slice(rng, dev)
     launches = main_path(rng, dev)
+    bench_rows, bench_launches = check_bench_path(rng, dev)
+    rows += bench_rows
+    launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    int_ops = sms * INT32_PER_SM_CLOCK * clock
+    print(f"bounds: {MEM_BYTES_PER_S / 1e12} TB/s; {sms} SMs x {INT32_PER_SM_CLOCK} INT32 lanes x "
+          f"{clock / 1e6:.0f} MHz (clocks.max.sm) = {int_ops / 1e12:.3f} T int32 ops/s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        mine = [r for r in rows if r[0] == name]
-        primary = next(r for r in mine if r[5])
+        mine = [r for r in rows if r["kernel"] == name]
+        primary = next(r for r in mine if r["primary"])
+        bound_ms, bound_by = bound(primary["work"], int_ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(r[2] for r in mine),
-            "ms": primary[3], "plain_ms": primary[4], "shape": primary[1],
+            "launches": launches[name], "max_abs_err": max(r["err"] for r in mine),
+            "ms": primary["ms"], "plain_ms": primary["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": primary["shape"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -5,7 +5,10 @@ CUDA kernel (sm_90a) in place of every Pallas kernel on the path:
 
   keygen (`scheme.keygen`) -> dense per-key operators
   (`mxu.build_operators`) -> elastic stream signer over int8 GEMMs
-  (`mxu.sign_stream_mxu`, or the `mxu.MxuSigner` module).
+  (`mxu.sign_stream_mxu`, or the `mxu.MxuSigner` module),
+
+and for the kernels of the JAX package's micro-bench and its A/B rigs
+(`bench_kernels`, `tools/`).
 
 Tensors on the CPU run each kernel's plain PyTorch version; tensors on a
 CUDA device run the kernels from `csrc/`, built with nvcc at first use

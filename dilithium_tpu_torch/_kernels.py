@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files are compiled by nvcc into one shared library with a
-plain C interface (sm_90a), loaded with ctypes. The library's file name
+All `csrc/*.cu` files are compiled by nvcc, one process per source, all
+started together, and linked into one shared library with a plain C
+interface (sm_90a), loaded with ctypes. The library's file name
 carries a hash of the sources and flags, so a stale build is never loaded.
 The build runs at the first launch on a CUDA tensor, under an flock so
 parallel processes do not link over each other; importing this module
@@ -28,17 +29,23 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argtypes (pointers and the stream as c_void_p)
+_L = ctypes.c_longlong
+# C entry point -> argtypes (pointers and the stream as c_void_p). K1-K4
+# carry the signing path; K5-K7 run on the kernel micro-bench
+# (`bench_kernels.py`) and its A/B rigs (`tools/`).
 _SIGNATURES = {
     "sponge": [_P, _P, _I, _I, _I, _I, _I, _P],
     "mask_limbs": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ball": [_P, _P, _P, _I, _I, _I, _P],
     "ntt": [_P, _P, _I, _P, _I, ctypes.c_uint32, ctypes.c_uint32, _P],
+    "permute": [_P, _P, _I, _L, _L, _P],
+    "sponge_planes": [_P, _P, _I, _I, _I, _I, _P],
+    "ball_bitplane": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 # launches per kernel since the last reset_launches()
@@ -86,6 +93,34 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libdilithium_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _compile_and_link(path: str) -> None:
+    stem = f"{path}.{os.getpid()}"
+    cus = [src for src in _sources() if src.endswith(".cu")]
+    objs = [f"{stem}.{os.path.basename(cu)}.o" for cu in cus]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, cu],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cu, obj in zip(cus, objs)
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [f"{os.path.basename(cu)} ({proc.returncode}):\n{out[-4000:]}"
+              for cu, proc, out in zip(cus, procs, outs) if proc.returncode != 0]
+    link = None
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", f"{stem}.tmp", *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
+    with open(path + ".log", "w") as log:
+        log.write("".join(outs) + (link.stdout + link.stderr if link else ""))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(f"{stem}.tmp", path)
+
+
 def build() -> str:
     """Compile csrc/*.cu into the hashed library unless it exists; return
     its path. The compiler's output is kept beside it as `<lib>.log`."""
@@ -97,19 +132,7 @@ def build() -> str:
         fcntl.flock(lock_f, fcntl.LOCK_EX)
         try:
             if not os.path.exists(path):
-                tmp = f"{path}.{os.getpid()}.tmp"
-                cus = [s for s in _sources() if s.endswith(".cu")]
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                    capture_output=True, text=True,
-                )
-                with open(path + ".log", "w") as log:
-                    log.write(proc.stdout + proc.stderr)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-                    )
-                os.replace(tmp, path)
+                _compile_and_link(path)
         finally:
             fcntl.flock(lock_f, fcntl.LOCK_UN)
     return path

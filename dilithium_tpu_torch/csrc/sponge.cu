@@ -2,10 +2,10 @@
 // message.
 //
 // Replaces dilithium_tpu/ops/keccak_pallas.py::shake_words_folded
-// (_xof_kernel) and the standalone permutation f1600_folded (_kernel):
-// every SHAKE/SHA3 on the one-key signing path runs here (keygen's seed
-// expansion, ExpandA, ExpandS and tr; rhoprime; c_tilde; the SampleInBall
-// stream).
+// (_xof_kernel): every SHAKE/SHA3 on the one-key signing path runs here
+// (keygen's seed expansion, ExpandA, ExpandS and tr; rhoprime; c_tilde;
+// the SampleInBall stream). The standalone permutation f1600_folded is
+// K5 (permute.cu).
 //
 // Bound on the card: integer ALU work of the permutation at large batch
 // (~3k 64-bit ops per permutation), and launch latency at the signer's

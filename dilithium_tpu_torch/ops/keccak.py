@@ -4,6 +4,8 @@ The port of `dilithium_tpu/ops/keccak.py`. Every sponge on the signing
 path goes through `sponge`: a CUDA tensor runs kernel K1
 (`csrc/sponge.cu`, one thread per message, state in registers), a CPU
 tensor runs `sponge_plain`, a vectorised Keccak-f[1600] on int64 lanes.
+The bare permutation, `keccak_f1600` / `keccak_f1600_planes`, runs
+kernel K5 (`csrc/permute.cu`) on a CUDA tensor.
 Messages are uint8 [..., msg_len] (all of one length); outputs are uint8
 [..., out_bytes], or for the `*_words` forms int64 [..., out_words] with
 word j = stream bytes 4j..4j+3 little-endian, in [0, 2^32).
@@ -82,6 +84,40 @@ def keccak_f1600_plain(st: torch.Tensor) -> torch.Tensor:
         st = st ^ (~st[:, chi1] & st[:, chi2])
         st[:, 0] ^= rc
     return st
+
+
+def _permute(st: torch.Tensor, batch: int, state_stride: int, lane_stride: int) -> torch.Tensor:
+    st = st.contiguous()
+    out = torch.empty_like(st)
+    _kernels.launch("permute", st.data_ptr(), out.data_ptr(), batch, state_stride,
+                    lane_stride, _kernels.stream_ptr(st))
+    return out
+
+
+def _check_lanes(st: torch.Tensor, lane_dim: int) -> None:
+    if st.dtype != torch.int64 or st.dim() != 2 or st.shape[lane_dim] != 25:
+        want = "[B, 25]" if lane_dim == 1 else "[25, B]"
+        raise ValueError(f"expected int64 lanes {want}; got {st.dtype} {tuple(st.shape)}")
+
+
+def keccak_f1600(st: torch.Tensor) -> torch.Tensor:
+    """One Keccak-f[1600] per state on int64 lanes [B, 25] (lane k = x +
+    5y): kernel K5 (`csrc/permute.cu`) on a CUDA tensor, the plain version
+    on a CPU one."""
+    _check_lanes(st, 1)
+    if not _kernels.on_cuda(st):
+        return keccak_f1600_plain(st)
+    return _permute(st, st.shape[0], 25, 1)
+
+
+def keccak_f1600_planes(planes: torch.Tensor) -> torch.Tensor:
+    """The plane form of `keccak_f1600`: int64 [25, B], row k = lane k of
+    every state (the counterpart of `keccak_pallas.f1600_folded`'s lane
+    planes). K5 on a CUDA tensor, with coalesced lane loads."""
+    _check_lanes(planes, 0)
+    if not _kernels.on_cuda(planes):
+        return keccak_f1600_plain(planes.t().contiguous()).t().contiguous()
+    return _permute(planes, planes.shape[1], 1, planes.shape[1])
 
 
 def _pad(data: torch.Tensor, rate: int, domain: int) -> torch.Tensor:

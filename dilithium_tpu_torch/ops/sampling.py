@@ -144,33 +144,39 @@ def expand_mask_limbs(rhoprime: torch.Tensor, kappa: torch.Tensor,
     return out
 
 
-def sample_in_ball_plain(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K3: stream uint8 [B, nbytes] -> (c int32 [B, 256]
-    in {0, 1, q-1}, ok bool [B]).
+def ball_positions(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The walk of SampleInBall: stream uint8 [B, nbytes] -> (j int64
+    [B, tau], neg int64 [B, tau] in {0, 1}, ok bool [B]).
 
-    Bytes 0..7 are 64 sign bits; each later byte j is taken for step
-    i = 256 - tau + cnt iff j <= i. Then tau Fisher-Yates steps: c[i] =
-    c[j], c[j] = +-1 by sign bit t. Steps the stream did not fill use
-    j = 0 (ok is False then)."""
+    Bytes 0..7 are 64 sign bits (neg[:, t] = bit t); each later byte j is
+    taken for step i = 256 - tau + cnt iff j <= i. Steps the stream did not
+    fill get j = 0 (ok is False then)."""
     B, nbytes = stream.shape
     dev = stream.device
     by = stream.to(torch.int64)
     signs = (by[:, :8, None] >> torch.arange(8, device=dev)) & 1  # [B, 8, 8]
-    sval = 1 - 2 * signs.reshape(B, 64)[:, :tau]
-    # walk: record the j of each taken step (column tau collects the rest)
     cnt = torch.zeros(B, dtype=torch.int64, device=dev)
-    j_buf = torch.zeros((B, tau + 1), dtype=torch.int64, device=dev)
+    j_buf = torch.zeros((B, tau + 1), dtype=torch.int64, device=dev)  # column tau collects the rest
     for t in range(8, nbytes):
         b = by[:, t]
         take = (b <= N - tau + cnt) & (cnt < tau)
         j_buf.scatter_(1, torch.where(take, cnt, tau)[:, None], b[:, None])
         cnt = cnt + take.to(torch.int64)
-    c = torch.zeros((B, N), dtype=torch.int64, device=dev)
+    return j_buf[:, :tau], signs.reshape(B, 64)[:, :tau], cnt >= tau
+
+
+def sample_in_ball_plain(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: stream uint8 [B, nbytes] -> (c int32 [B, 256]
+    in {0, 1, q-1}, ok bool [B]): the walk of `ball_positions`, then tau
+    Fisher-Yates steps c[i] = c[j], c[j] = +-1 by sign bit t."""
+    j_pos, neg, ok = ball_positions(stream, tau)
+    sval = 1 - 2 * neg
+    c = torch.zeros((stream.shape[0], N), dtype=torch.int64, device=stream.device)
     for t in range(tau):
-        j = j_buf[:, t:t + 1]
+        j = j_pos[:, t:t + 1]
         c[:, N - tau + t] = c.gather(1, j)[:, 0]
         c.scatter_(1, j, sval[:, t:t + 1])
-    return uncenter(c), cnt >= tau
+    return uncenter(c), ok
 
 
 def sample_in_ball_stream(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor, torch.Tensor]:
