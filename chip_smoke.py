@@ -9,23 +9,30 @@ line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels of dilithium_tpu_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version on the card, bit-equal,
-     at the shapes the Dilithium-3 main path gives it, with the median
-     CUDA-event time of each;
+     at the shapes the Dilithium-3 main path gives it and at edge shapes
+     (ragged batches, message and output lengths at and off the rate and
+     the 16-byte grain, the three rates, levels 2 and 5, the nonce's
+     16-bit wrap); each row with the median CUDA-event time of one call
+     (`ms`, host time included at small shapes), the device-only time of
+     one call (`device_ms`, `bench_kernels.device_ms`) and its bound;
   4. a small slice (Dilithium-2, Q = 64, W = 32) on the card against the
      port's plain path on the CPU: equal keys, operators and signatures;
   5. the main path: Dilithium-3, one key from a fixed seed, keygen ->
      build_operators -> MxuSigner over Q = 16384 mu at W = 768; every
      kernel must have launched, every signature must be ok and verify under
      the C++ oracle, and 512 must equal the oracle's signatures and
-     attempts. Prints signs/s over timed runs after a warm-up run;
+     attempts. Prints signs/s over timed runs after a warm-up run, then
+     one more run under torch.profiler (CUDA activity): device time per
+     round of K1, K2, K3, K4, the int8 GEMMs and the rest, and the
+     device's busy share of that run;
   6. the kernel-bench path: K5 (permutation), K6 (plane-major sponge) and
      K7 (bit-plane SampleInBall) against their plain versions, bit-equal,
      K6 also against K1 and K7 against K3; then
      `dilithium_tpu_torch.bench_kernels` at full width, counted: K5, K6
      and K7 must have launched.
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
-phase 6 for K5-K7), error, time, plain time and bound, the card line
-again, and last {"ok": true, "device": {...}}.
+phase 6 for K5-K7), error, time, device-only time, plain time and bound,
+the card line again, and last {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its 32-bit integer instructions
@@ -140,57 +147,89 @@ def max_abs_err(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().cpu())
 
 
-def comparer(phase: str, rows: list):
+def comparer(phase: str, rows: list, int_ops: float):
     """compare(kernel, label, fn, plain_fn, work, primary): check fn
     against plain_fn bit for bit, time both, and append a row."""
+    from dilithium_tpu_torch.bench_kernels import device_ms
+
     def compare(kernel, label, fn, plain_fn, work, primary=False):
         got, ref = fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        print(f"{phase}: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if err != 0.0:
             raise AssertionError(f"{kernel} {label} differs from its plain version")
-        rows.append({"kernel": kernel, "shape": label, "err": err, "ms": ms,
+        ms, dev_ms, plain_ms = time_ms(fn), device_ms(fn), time_ms(plain_fn)
+        bound_ms, bound_by = bound(work, int_ops)
+        print(f"{phase}: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms device {dev_ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.6f} ms ({bound_by}, {bound_ms / dev_ms:.2%} of device)")
+        rows.append({"kernel": kernel, "shape": label, "err": err, "ms": ms, "device_ms": dev_ms,
                      "plain_ms": plain_ms, "work": work, "primary": primary})
     return compare
 
 
-def check_kernels(rng, dev):
-    """Phase 3: kernel vs plain version at the main path's shapes."""
+def check_kernels(rng, dev, int_ops):
+    """Phase 3: kernel vs plain version at the main path's shapes and at
+    edge shapes."""
     from dilithium_tpu_torch.params import get_params
     from dilithium_tpu_torch.ops import keccak, ntt, sampling
 
     p = get_params(3)
     rows = []
-    compare = comparer("phase 3", rows)
+    compare = comparer("phase 3", rows, int_ops)
 
-    def u8(*shape):
-        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    # the edge rows draw from their own generator, so the main path's
+    # inputs in later phases stay those of earlier runs
+    edge_rng = np.random.default_rng(SEED + 1)
 
-    sponge_shapes = [  # label, batch, msg_len, out_bytes, rate
-        ("seedbuf", 1, 32, 128, 136),
-        ("expand_a", p.K * p.L, 34, 840, 168),
-        ("expand_s", p.K + p.L, 66, p.eta_blocks * 136, 136),
-        ("tr", 1, p.pk_bytes, 32, 136),
-        ("rhoprime", Q_MAIN, 96, 64, 136),
-        ("c_tilde", W_MAIN, 64 + p.K * p.polyw1_packedbytes, 32, 136),
-        ("ball_stream", W_MAIN, 32, 272, 136),
+    def u8(*shape, g=rng):
+        return torch.from_numpy(g.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    sponge_shapes = [  # label, batch, msg_len, out_bytes, rate, domain, byte offset of the rows
+        ("seedbuf", 1, 32, 128, 136, 0x1F, 0),
+        ("expand_a", p.K * p.L, 34, 840, 168, 0x1F, 0),
+        ("expand_s", p.K + p.L, 66, p.eta_blocks * 136, 136, 0x1F, 0),
+        ("tr", 1, p.pk_bytes, 32, 136, 0x1F, 0),
+        ("rhoprime", Q_MAIN, 96, 64, 136, 0x1F, 0),
+        ("c_tilde", W_MAIN, 64 + p.K * p.polyw1_packedbytes, 32, 136, 0x1F, 0),
+        ("ball_stream", W_MAIN, 32, 272, 136, 0x1F, 0),
+        # edges of the staged I/O: ragged batches, lengths off the 8- and
+        # 16-byte grain and at multiples of the rate, outputs off 8 bytes,
+        # the three rates, rows that start off a 16-byte boundary
+        ("edge", 769, 33, 33, 136, 0x1F, 0),
+        ("edge", 33, 66, 150, 168, 0x1F, 0),
+        ("edge sha3-512", 33, 97, 64, 72, 0x06, 0),
+        ("edge sha3-512", 769, 72, 64, 72, 0x06, 0),
+        ("edge", 33, 1952, 150, 136, 0x1F, 0),
+        ("edge", 769, 136, 33, 136, 0x1F, 0),
+        ("edge", 33, 168, 150, 168, 0x1F, 0),
+        ("edge", 33, 272, 408, 136, 0x1F, 0),
+        ("edge offset 3", 33, 97, 150, 136, 0x1F, 3),
     ]
-    for label, b, n, out, rate in sponge_shapes:
-        msg = u8(b, n)
-        compare("sponge", f"{label} [{b}, {n}] -> {out}",
-                lambda: keccak.sponge(msg, out, rate, 0x1F),
-                lambda: keccak.sponge_plain(msg, out, rate, 0x1F),
+    for label, b, n, out, rate, domain, offset in sponge_shapes:
+        if label.startswith("edge"):  # contiguous rows, offset bytes past their allocation's start
+            msg = u8(b * n + offset, g=edge_rng)[offset:].view(b, n)
+        else:
+            msg = u8(b, n)
+        compare("sponge", f"{label} [{b}, {n}] -> {out} rate {rate}",
+                lambda: keccak.sponge(msg, out, rate, domain),
+                lambda: keccak.sponge_plain(msg, out, rate, domain),
                 sponge_work(b, n, out, rate), primary=label == "c_tilde")
 
-    rp = u8(W_MAIN, 64)
-    kappa = torch.from_numpy(rng.integers(0, 400, W_MAIN).astype(np.int32) * p.L).to(dev)
-    compare("mask_limbs", f"W={W_MAIN}",
-            lambda: sampling.expand_mask_limbs(rp, kappa, p),
-            lambda: sampling.mask_limbs_plain(rp, kappa, p),
-            (W_MAIN * (64 + 4 + 3 * p.L * 256),
-             W_MAIN * p.L * sponge_work(1, 66, p.polyz_packedbytes, 136)[1]), primary=True)
+    for level, W, kappa_at in ((3, W_MAIN, None), (3, 769, None), (2, W_MAIN, None),
+                               (5, W_MAIN, None), (3, 64, 65534)):
+        lp = get_params(level)
+        g = rng if (level, W, kappa_at) == (3, W_MAIN, None) else edge_rng
+        rp = u8(W, 64, g=g)
+        if kappa_at is None:
+            kappa = torch.from_numpy(g.integers(0, 400, W).astype(np.int32) * lp.L).to(dev)
+        else:  # kappa + l wraps past 2^16 inside the row
+            kappa = torch.full((W,), kappa_at, dtype=torch.int32, device=dev)
+        compare("mask_limbs", f"level {level} W={W} L={lp.L}" + (f" kappa={kappa_at}" if kappa_at else ""),
+                lambda: sampling.expand_mask_limbs(rp, kappa, lp),
+                lambda: sampling.mask_limbs_plain(rp, kappa, lp),
+                (W * (64 + 4 + 3 * lp.L * 256),
+                 W * lp.L * sponge_work(1, 66, lp.polyz_packedbytes, 136)[1]),
+                primary=(level, W, kappa_at) == (3, W_MAIN, None))
 
     stream = keccak.sponge_plain(u8(W_MAIN, 32), 272, 136, 0x1F)
     stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
@@ -241,6 +280,7 @@ def main_path(rng, dev):
     """Phase 5: the main path at full size, counted, checked and timed."""
     from dilithium_tpu_torch import _kernels, mxu, oracle, scheme
     from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import round_profile
 
     p = get_params(3)
     seed_np = rng.integers(0, 256, 32, dtype=np.uint8)
@@ -290,10 +330,15 @@ def main_path(rng, dev):
           f"(median of {len(times)} runs {[round(x, 4) for x in times]} s; first run {t_first:.3f} s, "
           f"keygen+operators {t_key:.3f} s), rounds {res.rounds}, mean attempts {att.mean():.4f}; "
           f"all ok, oracle verifies {Q_MAIN}, {N_ORACLE_SIGN} equal oracle.sign; launches {launches}")
+    prof = round_profile.profile_rounds(signer, mus, res.sig)
+    if prof is None:
+        print("phase 5: profile: the profiler recorded no device events; device breakdown not measured")
+    else:
+        print(f"phase 5: profile of one more run (torch.profiler, CUDA activity): {round_profile.describe(*prof)}")
     return launches
 
 
-def check_bench_path(rng, dev):
+def check_bench_path(rng, dev, int_ops):
     """Phase 6: K5-K7 against their plain versions (K6 also against K1,
     K7 against K3), then the kernel bench at full width, counted."""
     from dilithium_tpu_torch import _kernels, bench_kernels
@@ -302,7 +347,7 @@ def check_bench_path(rng, dev):
     from dilithium_tpu_torch.tools import ball_exp, xof_exp
 
     rows = []
-    compare = comparer("phase 6", rows)
+    compare = comparer("phase 6", rows, int_ops)
 
     def lanes(b):
         return torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, (b, 25), dtype=np.int64)).to(dev)
@@ -378,20 +423,20 @@ def main() -> int:
         ptxas = [ln.strip() for ln in f if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"phase 2: built {lib} in {time.perf_counter() - t:.1f} s; ptxas: {' | '.join(ptxas)}")
 
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(SEED)
-    rows = check_kernels(rng, dev)
-    check_small_slice(rng, dev)
-    launches = main_path(rng, dev)
-    bench_rows, bench_launches = check_bench_path(rng, dev)
-    rows += bench_rows
-    launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
-
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
     int_ops = sms * INT32_PER_SM_CLOCK * clock
     print(f"bounds: {MEM_BYTES_PER_S / 1e12} TB/s; {sms} SMs x {INT32_PER_SM_CLOCK} INT32 lanes x "
           f"{clock / 1e6:.0f} MHz (clocks.max.sm) = {int_ops / 1e12:.3f} T int32 ops/s")
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    rows = check_kernels(rng, dev, int_ops)
+    check_small_slice(rng, dev)
+    launches = main_path(rng, dev)
+    bench_rows, bench_launches = check_bench_path(rng, dev, int_ops)
+    rows += bench_rows
+    launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -400,7 +445,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max(r["err"] for r in mine),
-            "ms": primary["ms"], "plain_ms": primary["plain_ms"], "bound_ms": bound_ms,
+            "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
+            "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": primary["shape"],
         })
     print(json.dumps({"kernels": kernels}))

@@ -68,6 +68,41 @@ def time_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call of fn in ms, the host's time left out: a
+    `torch.cuda._sleep` holds the stream until the host has queued n calls,
+    then CUDA events around the n calls, back to back on the device, give
+    their time over n; the median of reps such runs. A run in which the
+    device reached the calls before the host had queued them all is taken
+    again with a longer sleep; fn must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    cycles = int(max(4 * (time.perf_counter() - t), 1e-3) * 2e9)  # ~2 GHz SM clock
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < reps:
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t = time.perf_counter()
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        for _ in range(n):
+            fn()
+        e2.record()
+        queued_ms = (time.perf_counter() - t) * 1e3
+        e2.synchronize()
+        if e0.elapsed_time(e1) > queued_ms:
+            times.append(e1.elapsed_time(e2) / n)
+        elif cycles > 2e10:  # 10 s of sleep did not cover the host: fn waits for the device
+            raise RuntimeError("device_ms: the host never got ahead of the device")
+        else:
+            cycles *= 2
+    return statistics.median(times)
+
+
 def _same(a, b, what: str) -> None:
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
         raise AssertionError(f"{what}: the two sides differ")

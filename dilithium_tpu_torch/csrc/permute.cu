@@ -16,8 +16,8 @@
 // 32-bit logic and funnel-shift instructions against 400 bytes of state
 // moved, so even the strided form is far below the memory roofline.
 // Design: the 25 lanes live in registers for all 24 rounds (dk::keccakf,
-// shared with K1 and K2, fully unrolled with constant indices); the batch
-// tail is masked, so any B works.
+// shared with K6, fully unrolled with constant indices); the batch tail is
+// masked, so any B works.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -15,7 +15,8 @@
 // 32-bit instructions each, against 4 bytes read or written per word).
 // Design: one thread owns its 25-lane state in registers (dk::keccakf);
 // absorb reads word w of column b at w * B + b, so a warp's loads are
-// coalesced (K1 reads each message row at stride msg_len instead); the
+// coalesced across messages (K1 gives each message a warp and reads its
+// row's lanes side by side instead); the
 // rate loops are unrolled to the largest rate with a runtime guard so every
 // state index is constant. The batch-major squeeze stores are strided
 // across a warp (out_words * 4 bytes apart); staging them through shared

@@ -5,8 +5,8 @@ question was where the batch-major transpose of the squeezed words runs
 on the TPU. Here both sides write batch-major words, and the question is
 how the sponge reads its input:
 
-  A: `keccak.shake_words`, kernel K1, which reads each raw message row at
-     stride msg_len and pads inside the kernel;
+  A: `keccak.shake_words`, kernel K1, which gives each raw message row a
+     warp (one state lane a thread) and pads inside the kernel;
   B: `xof_bm`: the `planes_for` prologue (pad10*1, 32-bit words, planes
      [n_in_words, B]) and kernel K6 (`csrc/sponge_planes.cu`), whose word
      loads are coalesced.
