@@ -12,9 +12,14 @@ line):
      at the shapes the Dilithium-3 main path gives it and at edge shapes
      (ragged batches, message and output lengths at and off the rate and
      the 16-byte grain, the three rates, levels 2 and 5, the nonce's
-     16-bit wrap); each row with the median CUDA-event time of one call
-     (`ms`, host time included at small shapes), the device-only time of
-     one call (`device_ms`, `bench_kernels.device_ms`) and its bound;
+     16-bit wrap; for K3 levels 2, 3 and 5 at B = 1, 33, 768, 769 and
+     16384 with the stress rows of `tools/ball_edges.py`, no-take rows, a
+     136-byte stream and unaligned rows; for K4 batches 1, 129, 513 and
+     65536, all-zero and all-(q-1) inputs and both inverse scales through
+     both of its kernels); each row with the median CUDA-event time of
+     one call (`ms`, host time included at small shapes), the device-only
+     time of one call (`device_ms`, `bench_kernels.device_ms`) and its
+     bound;
   4. a small slice (Dilithium-2, Q = 64, W = 32) on the card against the
      port's plain path on the CPU: equal keys, operators and signatures;
   5. the main path: Dilithium-3, one key from a fixed seed, keygen ->
@@ -172,6 +177,7 @@ def check_kernels(rng, dev, int_ops):
     edge shapes."""
     from dilithium_tpu_torch.params import get_params
     from dilithium_tpu_torch.ops import keccak, ntt, sampling
+    from dilithium_tpu_torch.tools import ball_edges
 
     p = get_params(3)
     rows = []
@@ -234,19 +240,60 @@ def check_kernels(rng, dev, int_ops):
     stream = keccak.sponge_plain(u8(W_MAIN, 32), 272, 136, 0x1F)
     stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
 
-    compare("ball", f"B={W_MAIN}", lambda: sampling.sample_in_ball_stream(stream, p.tau),
+    compare("ball", f"level 3 B={W_MAIN}", lambda: sampling.sample_in_ball_stream(stream, p.tau),
             lambda: sampling.sample_in_ball_plain(stream, p.tau), ball_work(W_MAIN, 272), primary=True)
+    # K3's edges at every level: ragged batches around its 4 warps a block;
+    # the band-heavy, exact-limit, all-take, no-take and last-byte rows of
+    # `ball_edges` at the top of each batch (four no-take rows after them);
+    # a 136-byte stream; rows off the 4-byte alignment (a 272-byte row
+    # 3 bytes into its allocation, 270-byte rows at alternate alignments)
+    for level in (2, 3, 5):
+        tau = get_params(level).tau
+        for b, nbytes, offset in ((1, 272, 0), (33, 272, 0), (W_MAIN, 272, 0), (769, 272, 0),
+                                  (16384, 272, 0), (769, 136, 0), (769, 272, 3), (769, 270, 0)):
+            rows_np = edge_rng.integers(0, 256, (b, nbytes), dtype=np.uint8)
+            edges = ball_edges.edge_streams(tau, nbytes, seed=level)
+            if b > 1:
+                rows_np[:len(edges)] = edges[:b]
+                rows_np[len(edges):len(edges) + 4, 8:] = 255
+            flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint8), rows_np.reshape(-1)])).to(dev)
+            st = flat[offset:].view(b, nbytes)
+            compare("ball", f"edge level {level} B={b} {nbytes} B" + (f" offset {offset}" if offset else ""),
+                    lambda: sampling.sample_in_ball_stream(st, tau),
+                    lambda: sampling.sample_in_ball_plain(st, tau), ball_work(b, nbytes))
 
-    def coeffs(b):
-        return torch.from_numpy(rng.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
+    def coeffs(b, g=rng):
+        return torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
 
-    for label, x, fn, plain_fn, primary in [
-        ("forward [5, 256]", coeffs(5), ntt.ntt, ntt.ntt_plain, False),
-        ("inverse plain [30, 256]", coeffs(30), lambda v: ntt.invntt(v, False),
-         lambda v: ntt.invntt_plain(v, False), True),
-        ("inverse product [6, 256]", coeffs(6), ntt.invntt, ntt.invntt_plain, False),
-        ("forward [4096, 256]", coeffs(4096), ntt.ntt, ntt.ntt_plain, False),
-        ("inverse product [4096, 256]", coeffs(4096), ntt.invntt, ntt.invntt_plain, False),
+    def fill(b, v):
+        return torch.full((b, 256), v, dtype=torch.int32, device=dev)
+
+    inv_plain = (lambda v: ntt.invntt(v, False), lambda v: ntt.invntt_plain(v, False))
+    inv_product = (ntt.invntt, ntt.invntt_plain)
+    forward = (ntt.ntt, ntt.ntt_plain)
+    for label, x, (fn, plain_fn), primary in [
+        ("forward [5, 256]", coeffs(5), forward, False),
+        ("inverse plain [30, 256]", coeffs(30), inv_plain, True),
+        ("inverse product [6, 256]", coeffs(6), inv_product, False),
+        ("forward [4096, 256]", coeffs(4096), forward, False),
+        ("inverse product [4096, 256]", coeffs(4096), inv_product, False),
+        # K4's edges: one polynomial; batches just past the block kernel's
+        # limit and off the warp kernel's 8 warps a block (513), over what
+        # the card holds resident (65536: the grid walks the batch); the
+        # extreme inputs and both inverse scales through both kernels
+        ("edge forward [1, 256]", coeffs(1, edge_rng), forward, False),
+        ("edge inverse plain [1, 256]", coeffs(1, edge_rng), inv_plain, False),
+        ("edge forward [129, 256]", coeffs(129, edge_rng), forward, False),
+        ("edge inverse product [129, 256]", coeffs(129, edge_rng), inv_product, False),
+        ("edge forward [513, 256]", coeffs(513, edge_rng), forward, False),
+        ("edge inverse plain [513, 256]", coeffs(513, edge_rng), inv_plain, False),
+        ("edge forward [65536, 256]", coeffs(65536, edge_rng), forward, False),
+        ("edge inverse product [65536, 256]", coeffs(65536, edge_rng), inv_product, False),
+        ("edge inverse plain [65536, 256]", coeffs(65536, edge_rng), inv_plain, False),
+    ] + [
+        (f"edge {name} {label} [{b}, 256]", fill(b, v), fns, False)
+        for b in (129, 513) for label, v in (("zeros", 0), ("q-1", 8380416))
+        for name, fns in (("forward", forward), ("inverse product", inv_product), ("inverse plain", inv_plain))
     ]:
         compare("ntt", label, lambda: fn(x), lambda: plain_fn(x),
                 ntt_work(x.shape[0], "inverse" in label), primary)

@@ -191,12 +191,12 @@ def sample_in_ball_stream(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor,
     stream = stream.contiguous()
     B, nbytes = stream.shape
     c = torch.empty((B, N), dtype=torch.int32, device=stream.device)
-    ok = torch.empty((B,), dtype=torch.uint8, device=stream.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=stream.device)  # K3 stores 0 or 1 a byte
     _kernels.launch(
         "ball", stream.data_ptr(), c.data_ptr(), ok.data_ptr(), B, tau, nbytes,
         _kernels.stream_ptr(stream),
     )
-    return c, ok.bool()
+    return c, ok
 
 
 def sample_in_ball(c_tilde: torch.Tensor, p: DilithiumParams) -> Tuple[torch.Tensor, torch.Tensor]:

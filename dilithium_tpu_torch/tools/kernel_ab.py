@@ -1,5 +1,6 @@
-"""A/B of this checkout's K1 (sponge) and K2 (mask limbs) against other
-checkouts', on one card, at the signing path's shapes.
+"""A/B of this checkout's K1 (sponge), K2 (mask limbs), K3 (ball) and K4
+(NTT) against other checkouts', on one card, at the signing path's shapes
+and at large batch.
 
     python -m dilithium_tpu_torch.tools.kernel_ab OTHER [OTHER ...]
 
@@ -7,20 +8,20 @@ Each OTHER is the root of another checkout of the repo (a `git archive` of
 an earlier commit, say), named by its directory's name. Its
 `dilithium_tpu_torch/_kernels.py` is loaded under another module name and
 builds that checkout's `csrc/` into that checkout's own build directory.
-The C entry points `dk_sponge` and `dk_mask_limbs` have the same
-signatures on every side, so all run on the same inputs into their own
-output buffers: the outputs must be bit-equal, then each side's
-device-only time of one call (`bench_kernels.device_ms`, 20 calls a
-timing) is taken in turns, the order reversed every round, for ROUNDS
-rounds. Launches made
-here are not counted in `_kernels.LAUNCHES`. Prints a table to stderr and
-one JSON line to stdout.
+The C entry points `dk_sponge`, `dk_mask_limbs`, `dk_ball` and `dk_ntt`
+have the same signatures on every side, so all run on the same inputs
+into their own output buffers: the outputs must be bit-equal, then each
+side's device-only time of one call (`bench_kernels.device_ms`, 20 calls
+a timing) is taken in turns, the order reversed every round, for ROUNDS
+rounds. Launches made here are not counted in `_kernels.LAUNCHES`.
+Prints a table to stderr and one JSON line to stdout.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -31,9 +32,11 @@ import torch
 
 from dilithium_tpu_torch import _kernels
 from dilithium_tpu_torch.bench_kernels import device_ms
-from dilithium_tpu_torch.params import SHAKE256_RATE, get_params
+from dilithium_tpu_torch.ops import keccak, ntt
+from dilithium_tpu_torch.params import Q, SHAKE256_RATE, get_params
 
 W_MAIN, Q_MAIN = 768, 16384
+NTT_BATCHES = (1, 30, 512, 1024, 4096, 65536)
 ROUNDS = 3
 
 
@@ -73,27 +76,52 @@ def run(other_roots, seed: int = 2026) -> dict:
         ("rhoprime", Q_MAIN, 96, 64),
     ):
         msg = torch.from_numpy(rng.integers(0, 256, (b, n), dtype=np.uint8)).to(dev)
-        outs = {side: torch.empty((b, out_bytes), dtype=torch.uint8, device=dev) for side in libs}
+        outs = {side: (torch.empty((b, out_bytes), dtype=torch.uint8, device=dev),) for side in libs}
         cases[f"sponge {label} [{b}, {n}] -> {out_bytes}"] = (outs, {
-            side: _checked(lambda lib=lib, m=msg, o=outs[side], b=b, n=n, ob=out_bytes: lib.dk_sponge(
+            side: _checked(lambda lib=lib, m=msg, o=outs[side][0], b=b, n=n, ob=out_bytes: lib.dk_sponge(
                 m.data_ptr(), o.data_ptr(), b, n, ob, SHAKE256_RATE, 0x1F, stream))
             for side, lib in libs.items()})
     rp = torch.from_numpy(rng.integers(0, 256, (W_MAIN, 64), dtype=np.uint8)).to(dev)
     kappa = torch.from_numpy(rng.integers(0, 400, W_MAIN).astype(np.int32) * p.L).to(dev)
-    outs = {side: torch.empty((3, W_MAIN, p.L * 256), dtype=torch.int8, device=dev) for side in libs}
+    outs = {side: (torch.empty((3, W_MAIN, p.L * 256), dtype=torch.int8, device=dev),) for side in libs}
     cases[f"mask_limbs W={W_MAIN} L={p.L}"] = (outs, {
-        side: _checked(lambda lib=lib, o=outs[side]: lib.dk_mask_limbs(
+        side: _checked(lambda lib=lib, o=outs[side][0]: lib.dk_mask_limbs(
             rp.data_ptr(), kappa.data_ptr(), o.data_ptr(), W_MAIN, p.L, p.gamma1_bits, p.gamma1, stream))
         for side, lib in libs.items()})
+
+    nbytes = p.ball_blocks * SHAKE256_RATE
+    for b in (W_MAIN, Q_MAIN):  # the signer's window, and the kernel bench's batch
+        st = keccak.sponge_plain(torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev),
+                                 nbytes, SHAKE256_RATE, 0x1F)
+        outs = {side: (torch.empty((b, 256), dtype=torch.int32, device=dev),
+                       torch.empty((b,), dtype=torch.bool, device=dev)) for side in libs}
+        cases[f"ball level 3 B={b}"] = (outs, {
+            side: _checked(lambda lib=lib, o=outs[side], st=st, b=b: lib.dk_ball(
+                st.data_ptr(), o[0].data_ptr(), o[1].data_ptr(), b, p.tau, nbytes, stream))
+            for side, lib in libs.items()})
+    ztab = ntt._ztab_on(dev).data_ptr()
+    # the path's 5-30 polynomials, both sides of K4's switch between its
+    # block and warp kernels (512), and the kernel bench's batch
+    for b, inverse in itertools.product(NTT_BATCHES, (False, True)):
+        x = torch.from_numpy(rng.integers(0, Q, (b, 256)).astype(np.int32)).to(dev)
+        g = ntt._SCALE_PLAIN if b == 30 else ntt._SCALE_PRODUCT  # [30, 256]: as chip_smoke's primary row
+        gs = int(ntt._shoup(np.array([g]))[0])
+        outs = {side: (torch.empty_like(x),) for side in libs}
+        cases[f"ntt {'inverse' if inverse else 'forward'} [{b}, 256]"] = (outs, {
+            side: _checked(lambda lib=lib, o=outs[side][0], x=x, b=b, inv=int(inverse), g=g, gs=gs: lib.dk_ntt(
+                x.data_ptr(), o.data_ptr(), b, ztab, inv, g, gs, stream))
+            for side, lib in libs.items()})
 
     rows = {}
     for name, (outs, fns) in cases.items():
         for out in outs.values():
-            out.fill_(0)
+            for t in out:
+                t.zero_()
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
-        differ = [side for side in fns if not torch.equal(outs[side], outs["this"])]
+        differ = [side for side in fns
+                  if not all(torch.equal(a, b) for a, b in zip(outs[side], outs["this"]))]
         if differ:
             raise AssertionError(f"{name}: {differ} differ from this checkout")
         rows[name] = {side: [] for side in fns}
