@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's one-key Dilithium signing path and its kernel
-micro-bench on one CUDA card.
+"""Drive the PyTorch port's one-key Dilithium signing and verify paths and
+its kernel micro-bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -16,12 +16,21 @@ line):
      16384 with the stress rows of `tools/ball_edges.py`, no-take rows, a
      136-byte stream and unaligned rows; for K4 batches 1, 129, 513 and
      65536, all-zero and all-(q-1) inputs and both inverse scales through
-     both of its kernels); each row with the median CUDA-event time of
-     one call (`ms`, host time included at small shapes), the device-only
-     time of one call (`device_ms`, `bench_kernels.device_ms`) and its
-     bound;
+     both of its kernels; the verify path's shapes at 16384 signatures:
+     K1 on [16384, 32] -> 272 and [16384, 832] -> 32 bytes, K4 forward on
+     [81920, 256] and inverse on [98304, 256]); each row with the median
+     CUDA-event time of one call (`ms`, host time included at small
+     shapes), the device-only time of one call (`device_ms`,
+     `bench_kernels.device_ms`) and its bound;
+     then the device guard: with two or more devices, K1-K4 and a small
+     MxuVerifier on cuda:1 while cuda:0 is current, against their plain
+     versions and the oracle (with one device a line says it did not run);
   4. a small slice (Dilithium-2, Q = 64, W = 32) on the card against the
      port's plain path on the CPU: equal keys, operators and signatures;
+     then verify at levels 2 and 5: an oracle key, 64 signatures and
+     corrupted rows of every class of `tools/verify_cases.py`, through
+     verify_mxu, verify_expanded and verify on the card and on the CPU,
+     all equal to oracle.verify;
   5. the main path: Dilithium-3, one key from a fixed seed, keygen ->
      build_operators -> MxuSigner over Q = 16384 mu at W = 768; every
      kernel must have launched, every signature must be ok and verify under
@@ -34,10 +43,21 @@ line):
      K7 (bit-plane SampleInBall) against their plain versions, bit-equal,
      K6 also against K1 and K7 against K3; then
      `dilithium_tpu_torch.bench_kernels` at full width, counted: K5, K6
-     and K7 must have launched.
+     and K7 must have launched;
+  7. the verify path at full width: Dilithium-3, phase 5's key and its
+     16384 signatures plus corrupted rows of every class; MxuVerifier
+     (verify_mxu) and expand_pk + verify_expanded on every row, verify
+     (A expanded per lane) on the first 512 and the corrupted rows, each
+     equal to oracle.verify, counted: K1, K3 and K4 must have launched.
+     Prints verifies/s of verify_mxu and verify_expanded (median of 3
+     timed runs after a warm-up run), the one-time cost of
+     build_verify_operators and expand_pk, each verifier's peak memory,
+     and the device breakdown of one profiled verify_mxu call (K1, K3,
+     K4, the int8 GEMMs and the rest) with its busy share.
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
-phase 6 for K5-K7), error, time, device-only time, plain time and bound,
-the card line again, and last {"ok": true, "device": {...}}.
+phase 6 for K5-K7; `verify_launches` from phase 7), error, time,
+device-only time, plain time and bound, the card line again, and last
+{"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its 32-bit integer instructions
@@ -62,6 +82,7 @@ import torch
 SEED = 2026
 Q_MAIN, W_MAIN = 16384, 768
 N_ORACLE_SIGN = 512
+TOP_REST = 8  # kernels of the verify profile's "rest" printed by name
 N_STATES, N_POLYS = 131072, 65536  # the kernel bench's full width
 
 KERNELS = {
@@ -221,6 +242,17 @@ def check_kernels(rng, dev, int_ops):
                 lambda: keccak.sponge_plain(msg, out, rate, domain),
                 sponge_work(b, n, out, rate), primary=label == "c_tilde")
 
+    # the verify path's sponges at phase 7's batch: the ball stream and
+    # c_tilde' = SHAKE256(mu || w1') of Q_MAIN signatures (a generator of
+    # their own, so the rows above and below keep their inputs)
+    verify_rng = np.random.default_rng(SEED + 2)
+    for label, n, out in (("verify ball_stream", 32, 272),
+                          ("verify c_tilde", 64 + p.K * p.polyw1_packedbytes, 32)):
+        msg = u8(Q_MAIN, n, g=verify_rng)
+        compare("sponge", f"{label} [{Q_MAIN}, {n}] -> {out} rate 136",
+                lambda: keccak.sponge(msg, out, 136, 0x1F),
+                lambda: keccak.sponge_plain(msg, out, 136, 0x1F), sponge_work(Q_MAIN, n, out, 136))
+
     for level, W, kappa_at in ((3, W_MAIN, None), (3, 769, None), (2, W_MAIN, None),
                                (5, W_MAIN, None), (3, 64, 65534)):
         lp = get_params(level)
@@ -290,6 +322,10 @@ def check_kernels(rng, dev, int_ops):
         ("edge forward [65536, 256]", coeffs(65536, edge_rng), forward, False),
         ("edge inverse product [65536, 256]", coeffs(65536, edge_rng), inv_product, False),
         ("edge inverse plain [65536, 256]", coeffs(65536, edge_rng), inv_plain, False),
+        # verify_expanded at Q_MAIN signatures, level 3: z forward (Q_MAIN x L
+        # polynomials), w' inverse (Q_MAIN x K)
+        (f"verify forward [{Q_MAIN * p.L}, 256]", coeffs(Q_MAIN * p.L, verify_rng), forward, False),
+        (f"verify inverse product [{Q_MAIN * p.K}, 256]", coeffs(Q_MAIN * p.K, verify_rng), inv_product, False),
     ] + [
         (f"edge {name} {label} [{b}, 256]", fill(b, v), fns, False)
         for b in (129, 513) for label, v in (("zeros", 0), ("q-1", 8380416))
@@ -321,6 +357,114 @@ def check_small_slice(rng, dev):
         raise AssertionError("small slice: a signature is not ok")
     print(f"phase 4: Dilithium-2 Q=64 W=32 card == CPU plain path "
           f"(pk, sk, operators, sig, attempts, ok); mean attempts {out['cuda'][5].float().mean().item():.3f}")
+
+
+def verify_all(pk, sig, mu, p):
+    """The port's three verifiers on sig uint8 [R, sig_bytes], mu uint8
+    [R, 64] under one pk uint8 [pk_bytes], all on one device -> {name: bool
+    numpy [R]}: `verify_mxu` (through `MxuVerifier`), `verify_expanded` and
+    `verify` (A expanded per lane)."""
+    from dilithium_tpu_torch import mxu, scheme
+
+    verifier = mxu.MxuVerifier(mxu.build_verify_operators(pk, p), p)
+    return {
+        "verify_mxu": verifier(sig, mu).cpu().numpy(),
+        "verify_expanded": scheme.verify_expanded(scheme.expand_pk(pk, p), sig, mu, p).cpu().numpy(),
+        "verify": scheme.verify(pk.expand(sig.shape[0], -1), sig, mu, p).cpu().numpy(),
+    }
+
+
+def negative_rows(level, sig, mus, seed):
+    """Corrupted rows of every class of `tools/verify_cases.py` from valid
+    (sig, mu) rows under one key, with a signature under another oracle
+    key."""
+    from dilithium_tpu_torch import oracle
+    from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import verify_cases
+
+    g = np.random.default_rng(seed)
+    _, sk_f = oracle.keygen(level, g.integers(0, 256, (1, 32), dtype=np.uint8))
+    mu_f = g.integers(0, 256, (1, 64), dtype=np.uint8)
+    sig_f, _ = oracle.sign(level, sk_f, mu_f)
+    return verify_cases.negative_cases(sig, mus, sig_f[0], mu_f[0], get_params(level), seed=seed)
+
+
+def check_small_verify(dev):
+    """Phase 4, verify: levels 2 and 5, an oracle key, 64 signatures and
+    the corrupted rows; the three verifiers on the card and on the CPU
+    plain path, equal to each other and to oracle.verify."""
+    from dilithium_tpu_torch import oracle
+    from dilithium_tpu_torch.params import get_params
+
+    for level in (2, 5):
+        p = get_params(level)
+        g = np.random.default_rng(SEED + 3 + level)
+        pk_o, sk_o = oracle.keygen(level, g.integers(0, 256, (1, 32), dtype=np.uint8))
+        mus = g.integers(0, 256, (64, 64), dtype=np.uint8)
+        sig, _ = oracle.sign(level, np.repeat(sk_o, 64, axis=0), mus)
+        bad_sig, bad_mu, names = negative_rows(level, sig, mus, SEED + level)
+        sig_all, mu_all = np.concatenate([sig, bad_sig]), np.concatenate([mus, bad_mu])
+        expect = oracle.verify(level, np.repeat(pk_o, len(mu_all), axis=0), mu_all, sig_all)
+        if not (expect[:64].all() and not expect[64:].any()):
+            raise AssertionError(f"phase 4 verify level {level}: the oracle's answers are not as built")
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            got = verify_all(*(torch.from_numpy(x).to(d) for x in (pk_o[0], sig_all, mu_all)), p)
+            for verifier, ok in got.items():
+                if not np.array_equal(ok, expect):
+                    raise AssertionError(f"phase 4 verify level {level}: {verifier} on the {name} "
+                                         f"differs from oracle.verify at rows {np.nonzero(ok != expect)[0]}")
+        print(f"phase 4: verify level {level}: verify_mxu, verify_expanded and verify on the card and on "
+              f"the CPU == oracle.verify on 64 valid and {len(names)} corrupted rows "
+              f"({', '.join(sorted(set(names)))})")
+
+
+def check_other_device(rng_seed: int = SEED + 4):
+    """The device guard: K1, K2, K3 and K4 (both of its kernels) and a small
+    MxuVerifier run on cuda:1 while cuda:0 is current, bit-equal to their
+    plain versions. Needs two devices; prints that it did not run
+    otherwise."""
+    from dilithium_tpu_torch import mxu, oracle
+    from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.ops import keccak, ntt, sampling
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"device guard: the check runs kernels on cuda:1 while cuda:0 is current and needs two "
+              f"devices; this machine has {n}: not run")
+        return
+    g = np.random.default_rng(rng_seed)
+    p = get_params(3)
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    msg = torch.from_numpy(g.integers(0, 256, (769, 832), dtype=np.uint8)).to(other)
+    rp = torch.from_numpy(g.integers(0, 256, (769, 64), dtype=np.uint8)).to(other)
+    kappa = torch.from_numpy(g.integers(0, 400, 769).astype(np.int32) * p.L).to(other)
+    stream = keccak.sponge_plain(msg[:, :32], 272, 136, 0x1F)
+    checks = [
+        ("K1", lambda: keccak.sponge(msg, 32, 136, 0x1F), lambda: keccak.sponge_plain(msg, 32, 136, 0x1F)),
+        ("K2", lambda: sampling.expand_mask_limbs(rp, kappa, p), lambda: sampling.mask_limbs_plain(rp, kappa, p)),
+        ("K3", lambda: sampling.sample_in_ball_stream(stream, p.tau),
+         lambda: sampling.sample_in_ball_plain(stream, p.tau)),
+    ]
+    for b in (30, 4096):
+        x = torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(other)
+        checks += [(f"K4 forward [{b}, 256]", lambda x=x: ntt.ntt(x), lambda x=x: ntt.ntt_plain(x)),
+                   (f"K4 inverse [{b}, 256]", lambda x=x: ntt.invntt(x), lambda x=x: ntt.invntt_plain(x))]
+    for name, fn, plain_fn in checks:
+        got, ref = fn(), plain_fn()
+        torch.cuda.synchronize(other)
+        if torch.cuda.current_device() != 0 or max_abs_err(got, ref) != 0.0:
+            raise AssertionError(f"device guard: {name} on cuda:1 differs from its plain version")
+    pk_o, sk_o = oracle.keygen(3, g.integers(0, 256, (1, 32), dtype=np.uint8))
+    mus = g.integers(0, 256, (20, 64), dtype=np.uint8)
+    sig, _ = oracle.sign(3, np.repeat(sk_o, 20, axis=0), mus)
+    sig[3, 100] ^= 1
+    verifier = mxu.MxuVerifier(mxu.build_verify_operators(torch.from_numpy(pk_o[0]), p), p).to(other)
+    ok = verifier(torch.from_numpy(sig).to(other), torch.from_numpy(mus).to(other)).cpu().numpy()
+    if not np.array_equal(ok, oracle.verify(3, np.repeat(pk_o, 20, axis=0), mus, sig)):
+        raise AssertionError("device guard: MxuVerifier on cuda:1 differs from oracle.verify")
+    print(f"device guard: {', '.join(c[0] for c in checks)} and MxuVerifier on cuda:1 with cuda:0 current "
+          f"({n} devices): bit-equal to their plain versions, verify == oracle.verify")
 
 
 def main_path(rng, dev):
@@ -382,6 +526,100 @@ def main_path(rng, dev):
         print("phase 5: profile: the profiler recorded no device events; device breakdown not measured")
     else:
         print(f"phase 5: profile of one more run (torch.profiler, CUDA activity): {round_profile.describe(*prof)}")
+    return launches, kp.pk, mus_np, sig
+
+
+def verify_path(pk, mus_np, sig_np, dev):
+    """Phase 7: one-key verify at full width, Dilithium-3, phase 5's key
+    and its Q_MAIN signatures plus a block of corrupted rows: the three
+    verifiers against the oracle, counted; verifies/s of `verify_mxu` and
+    `verify_expanded`; one profiled `verify_mxu` call."""
+    from dilithium_tpu_torch import _kernels, mxu, oracle, scheme
+    from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import round_profile
+
+    p = get_params(3)
+    bad_sig, bad_mu, names = negative_rows(3, sig_np[:5], mus_np[:5], SEED + 7)
+    sig_all = torch.from_numpy(np.concatenate([sig_np, bad_sig])).to(dev)
+    mu_all = torch.from_numpy(np.concatenate([mus_np, bad_mu])).to(dev)
+    n_bad = len(names)
+    # `verify` expands A per lane: the first N_ORACLE_SIGN rows and the corrupted ones
+    lane_rows = tuple(torch.cat([x[:N_ORACLE_SIGN], x[Q_MAIN:]]) for x in (sig_all, mu_all))
+    expect = oracle.verify(3, np.repeat(pk.cpu().numpy()[None], Q_MAIN + n_bad, axis=0),
+                           mu_all.cpu().numpy(), sig_all.cpu().numpy())
+    if not (expect[:Q_MAIN].all() and not expect[Q_MAIN:].any()):
+        raise AssertionError("verify path: the oracle's answers are not as built")
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    verifier = mxu.MxuVerifier(mxu.build_verify_operators(pk, p), p)
+    torch.cuda.synchronize()
+    t_ops = time.perf_counter() - t
+    t = time.perf_counter()
+    epk = scheme.expand_pk(pk, p)
+    torch.cuda.synchronize()
+    t_epk = time.perf_counter() - t
+    peak = {}
+    got = {}
+    for name, fn, rows in (
+        ("verify_mxu", lambda: verifier(sig_all, mu_all), (sig_all, mu_all)),
+        ("verify_expanded", lambda: scheme.verify_expanded(epk, sig_all, mu_all, p), (sig_all, mu_all)),
+        ("verify", lambda: scheme.verify(pk.expand(lane_rows[0].shape[0], -1), *lane_rows, p), lane_rows),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got[name] = fn().cpu().numpy()
+        top = torch.cuda.max_memory_allocated()
+        peak[name] = (top / 2**20, (top - base) / 2**20)
+    launches = dict(_kernels.LAUNCHES)
+    missing = [k for k in ("sponge", "ball", "ntt") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"verify path launched no {missing} kernel")
+    expect_lane = np.concatenate([expect[:N_ORACLE_SIGN], expect[Q_MAIN:]])
+    for name, ok in got.items():
+        want = expect_lane if name == "verify" else expect
+        if not np.array_equal(ok, want):
+            raise AssertionError(f"verify path: {name} differs from oracle.verify at rows "
+                                 f"{np.nonzero(ok != want)[0]}")
+
+    sig_q, mu_q = sig_all[:Q_MAIN], mu_all[:Q_MAIN]
+    rates = {}
+    for name, fn in (("verify_mxu", lambda: verifier(sig_q, mu_q)),
+                     ("verify_expanded", lambda: scheme.verify_expanded(epk, sig_q, mu_q, p))):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if not bool(ok.all()):
+            raise AssertionError(f"verify path: a timed {name} run rejected a signature")
+        rates[name] = (Q_MAIN / statistics.median(times), times)
+    print(f"phase 7: Dilithium-3 verify, phase 5's key: verify_mxu and verify_expanded accept all {Q_MAIN}, "
+          f"verify (A per lane) the first {N_ORACLE_SIGN}; all three reject {n_bad} corrupted rows "
+          f"({', '.join(sorted(set(names)))}); every row == oracle.verify; launches {launches}")
+    print("phase 7: " + "; ".join(
+        f"{name} {rate:.1f} verifies/s (median of 3 runs {[round(x, 5) for x in times]} s)"
+        for name, (rate, times) in rates.items())
+        + f"; build_verify_operators {t_ops:.4f} s, expand_pk {t_epk:.4f} s; max_memory_allocated "
+          f"{', '.join(f'{k} {a:.1f} MiB ({b:.1f} above the resident)' for k, (a, b) in peak.items())} "
+          f"(verify on {lane_rows[0].shape[0]} rows, the others on {Q_MAIN + n_bad}); card {card_line()}")
+    ok, us, busy, rest = round_profile.profile_call(lambda: verifier(sig_q, mu_q))
+    if not bool(ok.all()):
+        raise AssertionError("verify path: the profiled verify_mxu run rejected a signature")
+    if us is None:
+        print("phase 7: profile: the profiler recorded no device events; device breakdown not measured")
+    else:
+        groups = ", ".join(f"{g} {v:.1f} us" for g, v in us.items() if not g.startswith("K2"))
+        print(f"phase 7: profile of one verify_mxu call over {Q_MAIN} signatures (torch.profiler, CUDA "
+              f"activity): device time {groups}; total {sum(us.values()):.1f} us; busy share {busy:.4f}")
+        top = sorted(rest.items(), key=lambda kv: -kv[1])[:TOP_REST]
+        print(f"phase 7: the rest's {TOP_REST} largest kernels of {len(rest)}: "
+              + "; ".join(f"{us_:.1f} us {name[:90]}" for name, us_ in top))
     return launches
 
 
@@ -479,9 +717,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     rows = check_kernels(rng, dev, int_ops)
+    check_other_device()
     check_small_slice(rng, dev)
-    launches = main_path(rng, dev)
+    check_small_verify(dev)
+    launches, pk, mus_np, sig_np = main_path(rng, dev)
     bench_rows, bench_launches = check_bench_path(rng, dev, int_ops)
+    verify_launches = verify_path(pk, mus_np, sig_np, dev)
     rows += bench_rows
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     kernels = []
@@ -491,7 +732,8 @@ def main() -> int:
         bound_ms, bound_by = bound(primary["work"], int_ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(r["err"] for r in mine),
+            "launches": launches[name], "verify_launches": verify_launches[name],
+            "max_abs_err": max(r["err"] for r in mine),
             "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": primary["shape"],

@@ -9,8 +9,9 @@ parallel processes do not link over each other; importing this module
 builds nothing.
 
 Each C entry point launches one kernel on the given stream and returns
-`cudaGetLastError()`; `launch` raises when that is not 0 and otherwise
-adds one to the kernel's count in `LAUNCHES`.
+`cudaGetLastError()`; `launch` makes the tensors' device current, passes
+its current stream, raises when the result is not 0 and otherwise adds
+one to the kernel's count in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -148,13 +149,14 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def launch(name: str, *args) -> None:
-    """Launch kernel `name` through its C entry point and count it."""
-    err = getattr(library(), "dk_" + name)(*args)
+def launch(name: str, t: torch.Tensor, *args) -> None:
+    """Launch kernel `name` through its C entry point on t's device, on
+    that device's current stream (passed as the last argument), and count
+    it. The device is made current for the call: a launch on another
+    device's stream fails."""
+    fn = getattr(library(), "dk_" + name)
+    with torch.cuda.device(t.device):
+        err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {err}")
     LAUNCHES[name] += 1

@@ -46,6 +46,7 @@
 //     inverse loads in C and stores in A.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -238,19 +239,26 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // warp_ntt_kernel's blocks for a batch: one per kWarps polynomials, at
-// most as many as the card keeps resident at once (each block then walks
-// the batch)
+// most as many as the current device keeps resident at once (each block
+// then walks the batch). The resident count is looked up once a device
+// and kept in a table indexed by the device (0 = not yet looked up).
+constexpr int kMaxDevices = 64;
+
 template <bool kInverse>
 int grid_for(int batch) {
-  static const int resident = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> resident[kMaxDevices];  // zero-initialised (static storage)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int res = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  if (res == 0) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, warp_ntt_kernel<kInverse>, kWarps * 32, 0);
-    return sms * (per_sm > 0 ? per_sm : 1);
-  }();
+    res = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) resident[dev].store(res, std::memory_order_relaxed);
+  }
   const int need = (batch + kWarps - 1) / kWarps;
-  return need < resident ? need : resident;
+  return need < res ? need : res;
 }
 
 }  // namespace

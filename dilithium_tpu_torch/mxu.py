@@ -1,6 +1,7 @@
-"""One-key signing over dense int8 operators (int8 GEMMs on the card).
+"""One-key signing and verification over dense int8 operators (int8 GEMMs
+on the card).
 
-The port of the signing part of `dilithium_tpu/mxu.py`. For a fixed key,
+The port of `dilithium_tpu/mxu.py`. For a fixed key,
 w = INTT(A_hat . NTT(y)) and c*s1, c*s2, c*t0 are linear in y and c, so
 the key is expanded once into dense matrices and every attempt runs as
 int8 x int8 -> int32 products (`torch._int_mm`):
@@ -13,6 +14,12 @@ int8 x int8 -> int32 products (`torch._int_mm`):
 y enters as 3 int8 limb planes straight from the mask kernel; the limb
 products recombine mod q in a short Horner chain.
 
+Verification is linear in (z, c) the same way: w' = A z - c (t1 << d),
+with A z through the signer's y -> w matrix (`wz_cat`, the same bytes as
+`wy_cat`) and c (t1 << d) through t1_cat int8 [256, 3*K*256], the limbs
+of the convolution matrices of centered t1 << d (`build_verify_operators`,
+`verify_mxu`, `MxuVerifier`).
+
 `torch._int_mm` on CUDA wants its second operand column-major, so both
 operators are stored that way (`gemm_layout`), once per key.
 """
@@ -24,10 +31,10 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from dilithium_tpu_torch.params import CRHBYTES, N, Q, DilithiumParams
+from dilithium_tpu_torch.params import CRHBYTES, D, N, Q, TRBYTES, DilithiumParams
 from dilithium_tpu_torch import scheme
 from dilithium_tpu_torch.ops import keccak, ntt, pack, rounding, sampling
-from dilithium_tpu_torch.ops.reduce import center, uncenter
+from dilithium_tpu_torch.ops.reduce import center, sub_mod, uncenter
 
 
 class KeyOperators(NamedTuple):
@@ -117,6 +124,21 @@ def _dot_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)[:m]
 
 
+def _apply_w(limbs, w_cat: torch.Tensor) -> torch.Tensor:
+    """3 int8 limb planes [B, L*N] of a centered vector (y or z) -> w = the
+    map's product int32 [B, K*N] canonical: 3 GEMMs against all 3 weight
+    limbs side by side (w_cat [L*N, 3*K*N]), summed by power of 256 and
+    recombined mod q."""
+    kn = w_cat.shape[1] // 3
+    prods = {}
+    for i in range(3):
+        p3 = _dot_i8(limbs[i], w_cat)  # int32 [B, 3*K*N]
+        for j in range(3):
+            pij = p3[:, j * kn:(j + 1) * kn]
+            prods[i + j] = pij if i + j not in prods else prods[i + j] + pij
+    return _recombine(*(prods[k] for k in range(5)))
+
+
 def _sign_attempt_mxu(ops: KeyOperators, mu: torch.Tensor, rhoprime: torch.Tensor,
                       kappa: torch.Tensor, p: DilithiumParams):
     """One candidate per row: mu uint8 [W, 64], rhoprime uint8 [W, 64],
@@ -126,13 +148,7 @@ def _sign_attempt_mxu(ops: KeyOperators, mu: torch.Tensor, rhoprime: torch.Tenso
     L, K = p.L, p.K
     limbs = sampling.expand_mask_limbs(rhoprime, kappa, p)  # int8 [3, W, L*N]
     kn = K * N
-    prods = {}
-    for i in range(3):
-        p3 = _dot_i8(limbs[i], ops.wy_cat)  # int32 [W, 3*K*N]
-        for j in range(3):
-            pij = p3[:, j * kn:(j + 1) * kn]
-            prods[i + j] = pij if i + j not in prods else prods[i + j] + pij
-    w = _recombine(*(prods[k] for k in range(5))).reshape(W, K, N)
+    w = _apply_w(limbs, ops.wy_cat).reshape(W, K, N)
     # centered y from its limbs (widened before the shifts)
     l32 = limbs.to(torch.int32)
     y_cent = (l32[0] + (l32[1] << 8) + (l32[2] << 16)).reshape(W, L, N)
@@ -201,3 +217,66 @@ class MxuSigner(nn.Module):
     def forward(self, mu: torch.Tensor, rhoprime: torch.Tensor | None = None) -> scheme.SignResult:
         return sign_stream_mxu(self.operators, mu, self.p, self.window,
                                self.max_rounds, rhoprime)
+
+
+class VerifyOperators(NamedTuple):
+    """Dense per-public-key verify operators (see the module docstring)."""
+    wz_cat: torch.Tensor  # int8 [L*256, 3*K*256], column-major
+    t1_cat: torch.Tensor  # int8 [256, 3*K*256], column-major
+    tr: torch.Tensor  # uint8 [32]
+
+
+def build_verify_operators(pk: torch.Tensor, p: DilithiumParams) -> VerifyOperators:
+    """Expand one unbatched pk uint8 [pk_bytes] into dense verify
+    operators. Raises when ExpandA's candidate budget runs out (the JAX
+    package checks this only under DILITHIUM_DEBUG_CHECKS)."""
+    rho, t1 = pack.unpack_pk(pk, p)
+    a_hat, ok_a = sampling.expand_a(rho, p)
+    if not bool(ok_a):
+        raise RuntimeError("ExpandA's candidate budget ran out for this key")
+    wz_cat = torch.cat(list(_wy_limbs_from_ahat(a_hat, p)), dim=-1)
+    # limbs of the convolution matrices of centered t1 << d, taken after
+    # the negacyclic sign flip (as for the y -> w map)
+    t1_cat = torch.cat(_to_limbs_i8(_block_conv(center(t1 << D))), dim=-1)
+    tr = keccak.shake256(pk, TRBYTES)
+    return VerifyOperators(gemm_layout(wz_cat), gemm_layout(t1_cat), tr)
+
+
+def verify_mxu(vops: VerifyOperators, sig: torch.Tensor, mu: torch.Tensor,
+               p: DilithiumParams) -> torch.Tensor:
+    """Verify sig uint8 [B, sig_bytes], mu uint8 [B, 64] under one key's
+    dense operators -> bool [B], the same answers as `scheme.verify`.
+    SampleInBall's ok is discarded, as in the JAX package."""
+    B = mu.shape[0]
+    c_tilde, z, h, h_ok = pack.unpack_sig(sig, p)
+    zc = center(z)
+    z_ok = ~rounding.norm_exceeds(zc, p.gamma1 - p.beta, dim=(-2, -1))
+    c, _ = sampling.sample_in_ball(c_tilde, p)
+
+    az = _apply_w(_to_limbs_i8(zc.reshape(B, p.L * N)), vops.wz_cat)  # [B, K*N]
+    # c has entries {0, +-1}: |c @ T1_j| <= tau * 128, so the limbs' direct
+    # sum fits int32
+    kn = p.K * N
+    prod = _dot_i8(center(c).to(torch.int8), vops.t1_cat)  # [B, 3*K*N]
+    ct1 = _mod_q_i32(prod[:, :kn] + (prod[:, kn:2 * kn] << 8) + (prod[:, 2 * kn:] << 16))
+    w = sub_mod(az, ct1).reshape(B, p.K, N)
+    return scheme._verify_tail(w, h, c_tilde, mu, z_ok & h_ok, p)
+
+
+class MxuVerifier(nn.Module):
+    """A one-key verify service: the key's verify operators as buffers, and
+    forward(sig, mu) -> bool [B]. Move it with `.to(device)`."""
+
+    def __init__(self, vops: VerifyOperators, p: DilithiumParams):
+        super().__init__()
+        self.p = p
+        self.register_buffer("wz_cat", gemm_layout(vops.wz_cat))
+        self.register_buffer("t1_cat", gemm_layout(vops.t1_cat))
+        self.register_buffer("tr", vops.tr)
+
+    @property
+    def operators(self) -> VerifyOperators:
+        return VerifyOperators(gemm_layout(self.wz_cat), gemm_layout(self.t1_cat), self.tr)
+
+    def forward(self, sig: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+        return verify_mxu(self.operators, sig, mu, self.p)

@@ -89,8 +89,8 @@ def keccak_f1600_plain(st: torch.Tensor) -> torch.Tensor:
 def _permute(st: torch.Tensor, batch: int, state_stride: int, lane_stride: int) -> torch.Tensor:
     st = st.contiguous()
     out = torch.empty_like(st)
-    _kernels.launch("permute", st.data_ptr(), out.data_ptr(), batch, state_stride,
-                    lane_stride, _kernels.stream_ptr(st))
+    _kernels.launch("permute", st, st.data_ptr(), out.data_ptr(), batch, state_stride,
+                    lane_stride)
     return out
 
 
@@ -160,8 +160,8 @@ def sponge(data: torch.Tensor, out_bytes: int, rate: int, domain: int) -> torch.
     data = data.contiguous()
     out = torch.empty((data.shape[0], out_bytes), dtype=torch.uint8, device=data.device)
     _kernels.launch(
-        "sponge", data.data_ptr(), out.data_ptr(), data.shape[0], data.shape[1],
-        out_bytes, rate, domain, _kernels.stream_ptr(data),
+        "sponge", data, data.data_ptr(), out.data_ptr(), data.shape[0], data.shape[1],
+        out_bytes, rate, domain,
     )
     return out
 

@@ -90,9 +90,9 @@ def _run(x: torch.Tensor, inverse: bool, from_product: bool = True) -> torch.Ten
     scale = _SCALE_PRODUCT if from_product else _SCALE_PLAIN
     out = torch.empty_like(flat)
     _kernels.launch(
-        "ntt", flat.data_ptr(), out.data_ptr(), flat.shape[0],
+        "ntt", flat, flat.data_ptr(), out.data_ptr(), flat.shape[0],
         _ztab_on(flat.device).data_ptr(), int(inverse), scale,
-        int(_shoup(np.array([scale]))[0]), _kernels.stream_ptr(flat),
+        int(_shoup(np.array([scale]))[0]),
     )
     return out.reshape(x.shape)
 
@@ -116,9 +116,10 @@ def pointwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def matvec(a_hat: torch.Tensor, s_hat: torch.Tensor) -> torch.Tensor:
     """[..., K, L, 256] x [..., L, 256] -> [..., K, 256], sum over l of
-    pointwise products."""
-    prod = mont_mul(a_hat, s_hat.unsqueeze(-3))
-    acc = prod[..., 0, :]
-    for l in range(1, prod.shape[-2]):
-        acc = add_mod(acc, prod[..., l, :])
+    pointwise products, one l at a time (a broadcast a_hat, as a one-key
+    verify passes it, is never widened beyond [..., K, 256])."""
+    acc = None
+    for l in range(a_hat.shape[-2]):
+        prod = mont_mul(a_hat[..., l, :], s_hat[..., l, :].unsqueeze(-2))
+        acc = prod if acc is None else add_mod(acc, prod)
     return acc

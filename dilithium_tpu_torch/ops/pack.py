@@ -1,9 +1,11 @@
-"""Bit-pack / unpack codecs for the signing path: keys, w1 and signatures.
+"""Bit-pack / unpack codecs: keys, w1 and signatures.
 
-The port of the main-path part of `dilithium_tpu/ops/pack.py`. Byte order
-is the spec's little-endian bitstream (first coefficient in the low bits
-of the first byte). Values are packed per group of lcm(8, bits) bits with
-a few shifted ORs per output byte, on int64 so no shift overflows.
+The port of `dilithium_tpu/ops/pack.py`: the signing path's packers and
+the verify path's unpackers, with the hint decoder's canonicity checks.
+Byte order is the spec's little-endian bitstream (first coefficient in the
+low bits of the first byte). Values are packed per group of lcm(8, bits)
+bits with a few shifted ORs per output byte, on int64 so no shift
+overflows.
 """
 
 from __future__ import annotations
@@ -98,6 +100,11 @@ def pack_t1(t1: torch.Tensor) -> torch.Tensor:
     return pack_bits(t1, 10)
 
 
+def unpack_t1(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., 320] -> t1 int32 [..., 256] in [0, 1023]."""
+    return unpack_bits(b, 10).to(torch.int32)
+
+
 def pack_t0(t0: torch.Tensor) -> torch.Tensor:
     """t0 centered in (-2^12, 2^12]."""
     return pack_bits((1 << (D - 1)) - t0.to(torch.int64), 13)
@@ -110,6 +117,13 @@ def unpack_t0(b: torch.Tensor) -> torch.Tensor:
 def pack_z(z: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
     """z canonical, centered value in (-gamma1, gamma1]."""
     return pack_bits(p.gamma1 - center(z), p.gamma1_bits)
+
+
+def unpack_z(b: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
+    """uint8 [..., polyz_packedbytes] -> z int32 [..., 256] canonical: each
+    gamma1_bits-bit value v decodes to gamma1 - v, centered value in
+    (-gamma1, gamma1], so any bytes decode."""
+    return uncenter(p.gamma1 - unpack_bits(b, p.gamma1_bits))
 
 
 def pack_w1(w1: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
@@ -132,12 +146,51 @@ def pack_hints(h: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
     return (torch.cat([out[..., :p.omega], counts], dim=-1) & 0xFF).to(torch.uint8)
 
 
+def unpack_hints(b: torch.Tensor, p: DilithiumParams):
+    """uint8 [..., omega + K] -> (h uint8 [..., K, 256] 0/1, ok bool [...]).
+
+    ok holds for a canonical encoding only: cumulative counts
+    non-decreasing and each <= omega; positions strictly increasing within
+    a polynomial; zeros after the last hint. The bitmap is the JAX
+    function's on every input, malformed ones included: slot s belongs to
+    polynomial k = #(counts <= s) (whether or not the counts are
+    monotone), and slots with k = K set nothing."""
+    K, omega = p.K, p.omega
+    batch = b.shape[:-1]
+    data = b.to(torch.int64)
+    ends = data[..., omega:]  # [..., K] cumulative counts
+    prev = torch.cat([torch.zeros_like(ends[..., :1]), ends[..., :-1]], dim=-1)
+    ok = (ends >= prev).all(dim=-1) & (ends <= omega).all(dim=-1)
+
+    slots = torch.arange(omega, device=b.device)
+    pos = data[..., :omega]  # [..., omega]
+    poly_of_slot = (slots[:, None] >= ends[..., None, :]).sum(dim=-1)  # [..., omega]
+    active = poly_of_slot < K
+    same_poly = torch.cat([torch.zeros_like(active[..., :1]),
+                           poly_of_slot[..., 1:] == poly_of_slot[..., :-1]], dim=-1)
+    increasing = torch.cat([torch.ones_like(active[..., :1]), pos[..., 1:] > pos[..., :-1]], dim=-1)
+    ok = ok & (increasing | ~(active & same_poly)).all(dim=-1)
+    ok = ok & ((pos == 0) | active).all(dim=-1)
+
+    # column K*N takes the inactive slots and is dropped
+    flat_idx = torch.where(active, poly_of_slot * N + pos, K * N)
+    bitmap = torch.zeros(batch + (K * N + 1,), dtype=torch.uint8, device=b.device)
+    bitmap.scatter_(-1, flat_idx, 1)
+    return bitmap[..., :K * N].reshape(batch + (K, N)), ok
+
+
 # ---- key / signature containers ----
 
 def pack_pk(rho: torch.Tensor, t1: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
     """rho uint8 [..., 32], t1 [..., K, 256] -> uint8 [..., pk_bytes]."""
     t1b = pack_t1(t1).reshape(t1.shape[:-2] + (p.K * POLYT1_PACKEDBYTES,))
     return torch.cat([rho, t1b], dim=-1)
+
+
+def unpack_pk(pk: torch.Tensor, p: DilithiumParams):
+    """uint8 [..., pk_bytes] -> (rho uint8 [..., 32], t1 int32 [..., K, 256])."""
+    t1b = pk[..., SEEDBYTES:].reshape(pk.shape[:-1] + (p.K, POLYT1_PACKEDBYTES))
+    return pk[..., :SEEDBYTES], unpack_t1(t1b)
 
 
 def pack_sk(rho, key, tr, s1, s2, t0, p: DilithiumParams) -> torch.Tensor:
@@ -168,3 +221,14 @@ def pack_sig(c_tilde, z, h, p: DilithiumParams) -> torch.Tensor:
     batch = c_tilde.shape[:-1]
     zb = pack_z(z, p).reshape(batch + (p.L * p.polyz_packedbytes,))
     return torch.cat([c_tilde, zb, pack_hints(h, p)], dim=-1)
+
+
+def unpack_sig(sig: torch.Tensor, p: DilithiumParams):
+    """uint8 [..., sig_bytes] -> (c_tilde uint8 [..., 32], z int32
+    [..., L, 256] canonical, h uint8 [..., K, 256] 0/1, ok bool [...]: the
+    hint block is canonical)."""
+    batch = sig.shape[:-1]
+    nz = p.L * p.polyz_packedbytes
+    z = unpack_z(sig[..., SEEDBYTES:SEEDBYTES + nz].reshape(batch + (p.L, p.polyz_packedbytes)), p)
+    h, ok = unpack_hints(sig[..., SEEDBYTES + nz:], p)
+    return sig[..., :SEEDBYTES], z, h, ok

@@ -138,8 +138,8 @@ def expand_mask_limbs(rhoprime: torch.Tensor, kappa: torch.Tensor,
         raise ValueError(f"mask kernel takes 18- or 20-bit y, not {p.gamma1_bits}")
     out = torch.empty((3, W, p.L * N), dtype=torch.int8, device=rhoprime.device)
     _kernels.launch(
-        "mask_limbs", rhoprime.data_ptr(), kappa.data_ptr(), out.data_ptr(),
-        W, p.L, p.gamma1_bits, p.gamma1, _kernels.stream_ptr(rhoprime),
+        "mask_limbs", rhoprime, rhoprime.data_ptr(), kappa.data_ptr(), out.data_ptr(),
+        W, p.L, p.gamma1_bits, p.gamma1,
     )
     return out
 
@@ -193,8 +193,7 @@ def sample_in_ball_stream(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor,
     c = torch.empty((B, N), dtype=torch.int32, device=stream.device)
     ok = torch.empty((B,), dtype=torch.bool, device=stream.device)  # K3 stores 0 or 1 a byte
     _kernels.launch(
-        "ball", stream.data_ptr(), c.data_ptr(), ok.data_ptr(), B, tau, nbytes,
-        _kernels.stream_ptr(stream),
+        "ball", stream, stream.data_ptr(), c.data_ptr(), ok.data_ptr(), B, tau, nbytes,
     )
     return c, ok
 

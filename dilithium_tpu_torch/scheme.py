@@ -1,8 +1,11 @@
-"""Key generation and the elastic stream-signing loop.
+"""Key generation, the elastic stream-signing loop and verification.
 
-The port of the one-key signing path's part of `dilithium_tpu/scheme.py`:
-`keygen`, `SignResult`, `validate_rhoprime` and `_stream_loop`, the
-elastic attempt-slot loop that `mxu.sign_stream_mxu` drives.
+The port of these parts of `dilithium_tpu/scheme.py`: `keygen`,
+`SignResult`, `validate_rhoprime` and `_stream_loop`, the elastic
+attempt-slot loop that `mxu.sign_stream_mxu` drives; and verify in its
+NTT form, per lane (`verify`) or under one expanded public key
+(`expand_pk` + `verify_expanded`), with the epilogue `_verify_tail` that
+the dense-operator verifier (`mxu.verify_mxu`) shares.
 """
 
 from __future__ import annotations
@@ -11,9 +14,9 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from dilithium_tpu_torch.params import CRHBYTES, N, SEEDBYTES, TRBYTES, DilithiumParams
+from dilithium_tpu_torch.params import CRHBYTES, D, N, SEEDBYTES, TRBYTES, DilithiumParams
 from dilithium_tpu_torch.ops import keccak, ntt, pack, rounding, sampling
-from dilithium_tpu_torch.ops.reduce import add_mod
+from dilithium_tpu_torch.ops.reduce import add_mod, center, sub_mod
 
 
 class KeyPair(NamedTuple):
@@ -178,3 +181,68 @@ def _stream_loop(attempt_fn: AttemptFn, mu: torch.Tensor, rhoprime: torch.Tensor
     sig = pack.pack_sig(ct_out[:Q], z_out[:Q], h_out[:Q], p)
     attempts = att_out[:Q]
     return SignResult(sig, attempts, attempts > 0, rounds)
+
+
+def _verify_tail(w, h, c_tilde, mu, pre_ok, p: DilithiumParams) -> torch.Tensor:
+    """The verify epilogue: w' int32 [..., K, 256] canonical (however it was
+    computed) -> w1' = UseHint(h, w') -> accept iff c_tilde ==
+    SHAKE256(mu || pack(w1'), 32) and pre_ok."""
+    w1 = rounding.use_hint(h, w, p)
+    w1_packed = pack.pack_w1(w1, p).reshape(w1.shape[:-2] + (p.K * p.polyw1_packedbytes,))
+    c_tilde2 = keccak.shake256(torch.cat([mu, w1_packed], dim=-1), SEEDBYTES)
+    return pre_ok & (c_tilde == c_tilde2).all(dim=-1)
+
+
+def _verify_core(a_hat, t1_hat, sig, mu, p: DilithiumParams) -> torch.Tensor:
+    """Verify against NTT-domain key material broadcast to the batch:
+    w' = INTT(A_hat . NTT(z) - NTT(c) . t1_hat). SampleInBall's ok is
+    discarded, as in the JAX package."""
+    c_tilde, z, h, h_ok = pack.unpack_sig(sig, p)
+    z_ok = ~rounding.norm_exceeds(center(z), p.gamma1 - p.beta, dim=(-2, -1))
+    c, _ = sampling.sample_in_ball(c_tilde.reshape(-1, SEEDBYTES), p)
+    c_hat = ntt.ntt(c.reshape(c_tilde.shape[:-1] + (N,)))
+    z_hat = ntt.ntt(z)
+    az = ntt.matvec(a_hat, z_hat)  # carries R^-1
+    ct1 = ntt.pointwise(c_hat.unsqueeze(-2), t1_hat)  # carries R^-1
+    w = ntt.invntt(sub_mod(az, ct1), from_product=True)
+    return _verify_tail(w, h, c_tilde, mu, z_ok & h_ok, p)
+
+
+def verify(pk: torch.Tensor, sig: torch.Tensor, mu: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
+    """Dilithium verify with a key per lane: pk uint8 [..., pk_bytes], sig
+    uint8 [..., sig_bytes], mu uint8 [..., 64] -> bool [...]. Expands A for
+    every lane; a one-key service uses `expand_pk` + `verify_expanded` or
+    `mxu.verify_mxu`. ExpandA's ok is not checked, as in the JAX package."""
+    rho, t1 = pack.unpack_pk(pk, p)
+    a_hat, _ = sampling.expand_a(rho, p)
+    t1_hat = ntt.ntt(t1 << D)  # t1 * 2^13 <= q - 1 stays canonical
+    return _verify_core(a_hat, t1_hat, sig, mu, p)
+
+
+class ExpandedPk(NamedTuple):
+    """NTT-domain public-key material, computed once a key."""
+    a_hat: torch.Tensor  # int32 [..., K, L, 256]
+    t1_hat: torch.Tensor  # int32 [..., K, 256] = NTT(t1 << d)
+    tr: torch.Tensor  # uint8 [..., 32]
+
+
+def expand_pk(pk: torch.Tensor, p: DilithiumParams) -> ExpandedPk:
+    """Unpack pk uint8 [..., pk_bytes] and precompute its NTT-domain
+    material. Raises when ExpandA's candidate budget runs out (the JAX
+    package checks this only under DILITHIUM_DEBUG_CHECKS)."""
+    rho, t1 = pack.unpack_pk(pk, p)
+    a_hat, ok_a = sampling.expand_a(rho, p)
+    if not bool(ok_a.all()):
+        raise RuntimeError("ExpandA's candidate budget ran out for this key")
+    return ExpandedPk(a_hat, ntt.ntt(t1 << D), keccak.shake256(pk, TRBYTES))
+
+
+def verify_expanded(epk: ExpandedPk, sig: torch.Tensor, mu: torch.Tensor,
+                    p: DilithiumParams) -> torch.Tensor:
+    """Verify a batch sig uint8 [..., sig_bytes], mu uint8 [..., 64] under
+    one unbatched ExpandedPk -> bool [...]. The key material is broadcast
+    as a view, never copied per lane."""
+    batch = mu.shape[:-1]
+    a_hat = epk.a_hat.expand(batch + epk.a_hat.shape)
+    t1_hat = epk.t1_hat.expand(batch + epk.t1_hat.shape)
+    return _verify_core(a_hat, t1_hat, sig, mu, p)

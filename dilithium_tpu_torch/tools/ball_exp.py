@@ -67,6 +67,6 @@ def sample_in_ball_v1(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor, tor
     B, nbytes = stream.shape
     c = torch.empty((B, N), dtype=torch.int32, device=stream.device)
     ok = torch.empty((B,), dtype=torch.uint8, device=stream.device)
-    _kernels.launch("ball_bitplane", stream.data_ptr(), c.data_ptr(), ok.data_ptr(),
-                    B, tau, nbytes, _kernels.stream_ptr(stream))
+    _kernels.launch("ball_bitplane", stream, stream.data_ptr(), c.data_ptr(), ok.data_ptr(),
+                    B, tau, nbytes)
     return c, ok.bool()

@@ -10,7 +10,7 @@ one line: device time per round of K1 (sponge), K2 (mask limbs), K3
 copies and fills), and the device's busy share of that run (device time
 over the run's wall time on the host clock, profiler on); then one JSON
 line. `chip_smoke.py` phase 5 prints the same breakdown for its own
-queue.
+queue, and phase 7 the breakdown of one `verify_mxu` call (`profile_call`).
 """
 
 from __future__ import annotations
@@ -29,30 +29,43 @@ OTHER_GROUPS = ("int8 GEMMs", "rest")
 SEED, QUEUE, WINDOW = 2026, 16384, 768
 
 
-def profile_rounds(signer, mus: torch.Tensor, ref_sig: torch.Tensor):
-    """Run signer(mus) once under torch.profiler (CUDA activity). Return
-    ({group: device us per round}, busy share, rounds), or None if the
-    profiler recorded no device event. Raises if the signatures differ
-    from ref_sig."""
+def profile_call(fn):
+    """Run fn() once under torch.profiler (CUDA activity). Return (its
+    result, {group: device us}, busy share: device time over the call's
+    wall time, {kernel name: device us} of the group "rest"), with None for
+    the last three when the profiler recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        res = signer(mus)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    if not torch.equal(res.sig, ref_sig):
-        raise AssertionError("the profiled run gave other signatures")
-    us = dict.fromkeys([g for g, _ in GROUPS] + list(OTHER_GROUPS), 0.0)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        return None
+        return out, None, None, None
+    us = dict.fromkeys([g for g, _ in GROUPS] + list(OTHER_GROUPS), 0.0)
+    rest = {}
     for e in events:
         name = e.name.lower()
         group = next((g for g, key in GROUPS if key in name), "int8 GEMMs" if "gemm" in name else "rest")
         us[group] += e.time_range.elapsed_us()
-    busy = sum(us.values()) / wall_us
+        if group == "rest":
+            rest[e.name] = rest.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return out, us, sum(us.values()) / wall_us, rest
+
+
+def profile_rounds(signer, mus: torch.Tensor, ref_sig: torch.Tensor):
+    """Run signer(mus) once under torch.profiler (CUDA activity). Return
+    ({group: device us per round}, busy share, rounds), or None if the
+    profiler recorded no device event. Raises if the signatures differ
+    from ref_sig."""
+    res, us, busy, _ = profile_call(lambda: signer(mus))
+    if not torch.equal(res.sig, ref_sig):
+        raise AssertionError("the profiled run gave other signatures")
+    if us is None:
+        return None
     return {g: v / res.rounds for g, v in us.items()}, busy, res.rounds
 
 

@@ -71,8 +71,8 @@ def shake_words_batchmajor(planes: torch.Tensor, out_words: int, rate_w: int) ->
     planes = planes.contiguous()
     n_in, b = planes.shape
     out = torch.empty((b, out_words), dtype=torch.int32, device=planes.device)
-    _kernels.launch("sponge_planes", planes.data_ptr(), out.data_ptr(), b, n_in,
-                    out_words, rate_w, _kernels.stream_ptr(planes))
+    _kernels.launch("sponge_planes", planes, planes.data_ptr(), out.data_ptr(), b, n_in,
+                    out_words, rate_w)
     return out
 
 

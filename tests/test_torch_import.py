@@ -56,7 +56,7 @@ def test_package_imports_without_jax_triton_or_nvcc():
     for mod in ("mxu", "scheme", "convert", "_kernels", "ops.keccak", "ops.ntt",
                 "ops.sampling", "ops.pack", "ops.rounding", "ops.reduce", "params",
                 "oracle", "bench_kernels", "tools.xof_exp", "tools.ball_exp",
-                "tools.kernel_ab", "tools.round_profile", "tools.ball_edges"):
+                "tools.kernel_ab", "tools.round_profile", "tools.ball_edges", "tools.verify_cases"):
         assert f"dilithium_tpu_torch.{mod}" in proc.stdout, mod
 
 

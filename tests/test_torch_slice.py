@@ -64,10 +64,10 @@ def test_sign_stream_matches_jax(level2):
 def test_converted_state_signs_like_jax(level2):
     """JAX's keys and operators, carried over as numpy, drive the port."""
     p, _, mus, j = level2
-    kp = convert.keypair_from_numpy(*j["kp"])
+    kp = convert.keypair_from_numpy(*j["kp"], device="cpu")
     _eq(kp.sk, j["kp"][1], "sk")
     assert kp.s1.dtype == torch.int32 and kp.ok.dtype == torch.bool
-    ops = convert.key_operators_from_numpy(*j["ops"])
+    ops = convert.key_operators_from_numpy(*j["ops"], device="cpu")
     signer = mxu.MxuSigner(ops, p, window=4, max_rounds=512)
     res = signer(torch.from_numpy(mus))
     for name, got, exp in zip(("sig", "attempts", "ok"), res[:3], j["res"]):
