@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's one-key Dilithium signing and verify paths and
-its kernel micro-bench on one CUDA card.
+"""Drive the PyTorch port's Dilithium signing and verify paths, its bytes
+API and CLI, and its kernel micro-bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,10 +18,17 @@ line):
      65536, all-zero and all-(q-1) inputs and both inverse scales through
      both of its kernels; the verify path's shapes at 16384 signatures:
      K1 on [16384, 32] -> 272 and [16384, 832] -> 32 bytes, K4 forward on
-     [81920, 256] and inverse on [98304, 256]); each row with the median
-     CUDA-event time of one call (`ms`, host time included at small
-     shapes), the device-only time of one call (`device_ms`,
-     `bench_kernels.device_ms`) and its bound;
+     [81920, 256] and inverse on [98304, 256]; the generic signers'
+     shapes of a stream round and of a lockstep round at B = 16384,
+     A = 4: K1's ExpandMask [3840, 66] and [327680, 66] -> 640 bytes,
+     c_tilde [65536, 832] -> 32 and the ball stream [65536, 32] -> 272,
+     K3 at B = 65536, K4 forward [327680, 256] and inverse [393216, 256];
+     phase 8b's key set-up at 256 and 16384 keys: K1's seedbuf, ExpandA,
+     ExpandS and tr sponges, K4 forward on the K and L polynomials a key
+     and inverse on the K);
+     each row with the median CUDA-event time of one call (`ms`, host
+     time included at small shapes), the device-only time of one call
+     (`device_ms`, `bench_kernels.device_ms`) and its bound;
      then the device guard: with two or more devices, K1-K4 and a small
      MxuVerifier on cuda:1 while cuda:0 is current, against their plain
      versions and the oracle (with one device a line says it did not run);
@@ -54,8 +61,32 @@ line):
      build_verify_operators and expand_pk, each verifier's peak memory,
      and the device breakdown of one profiled verify_mxu call (K1, K3,
      K4, the int8 GEMMs and the rest) with its busy share.
+  8. the bytes API and the generic signers. 8a, the gate, at levels 2, 3
+     and 5 against the C++ oracle: `api.keygen` on 8 seeds; 64 messages of
+     0-300 bytes signed by `api.sign`, `Signer` ("mxu" and "batch") and
+     `MultiSigner` (8 keys), equal to `oracle.sign` in bytes, and the
+     scheme calls beneath them in bytes and attempts; randomized
+     signatures accepted by `oracle.verify` and unlike the deterministic
+     ones; `api.verify` and `Verifier` ("mxu" and "batch") on valid rows,
+     every corruption class of `tools/verify_cases.py` and a short
+     signature, equal to `oracle.verify`; each service again from an .npz
+     cache it wrote; then the CLI (`python -m dilithium_tpu_torch --level
+     3`) in subprocesses on the card, exit codes 0, 0, 0 and 1 after a
+     flipped byte. 8b, full width at Dilithium-3, the JAX package's bench
+     operating points: `keys` (a `MultiSigner` of 256 keys, 16384
+     messages of 200 bytes with a random key each, W = 768, from bytes),
+     `stream` (`scheme.sign_stream`, one key, Q = 16384, W = 768) and
+     `lockstep` (`scheme.sign`, 16384 keys, 4 attempts a round, at most
+     96 rounds; all 16384 keys equal `oracle.keygen`); each run counted
+     (K1, K3 and K4 must launch), every signature ok and accepted by
+     `oracle.verify`, 512 equal to `oracle.sign` in bytes and attempts;
+     signs/s (median of 3 timed
+     runs after the checked run), rounds and peak memory; then one
+     profiled stream queue (device time per round by kernel group, busy
+     share, the rest's largest kernels).
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
-phase 6 for K5-K7; `verify_launches` from phase 7), error, time,
+phase 6 for K5-K7; `verify_launches` from phase 7, `api_launches` from
+phase 8's counted runs), error, time,
 device-only time, plain time and bound, the card line again, and last
 {"ok": true, "device": {...}}.
 
@@ -71,16 +102,23 @@ built with make on first use.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 SEED = 2026
 Q_MAIN, W_MAIN = 16384, 768
+LOCKSTEP_Q, ATTEMPTS, LOCKSTEP_ROUNDS = 16384, 4, 96  # the lockstep signer's operating point
+N_KEYS = 256  # the MultiSigner run's keys
+MSG_LEN = 200  # its messages' length in bytes
+N_GATE, N_GATE_KEYS = 64, 8  # phase 8a: messages and keys a level
 N_ORACLE_SIGN = 512
 TOP_REST = 8  # kernels of the verify profile's "rest" printed by name
 N_STATES, N_POLYS = 131072, 65536  # the kernel bench's full width
@@ -253,6 +291,35 @@ def check_kernels(rng, dev, int_ops):
                 lambda: keccak.sponge(msg, out, 136, 0x1F),
                 lambda: keccak.sponge_plain(msg, out, 136, 0x1F), sponge_work(Q_MAIN, n, out, 136))
 
+    # the generic signers' ExpandMask: a stream round's W x L messages and a
+    # lockstep round's B x A x L (a generator of their own, as above)
+    generic_rng = np.random.default_rng(SEED + 5)
+    for label, b in (("stream expand_mask", W_MAIN * p.L), ("lockstep expand_mask", LOCKSTEP_Q * ATTEMPTS * p.L)):
+        msg = u8(b, 66, g=generic_rng)
+        compare("sponge", f"{label} [{b}, 66] -> {p.polyz_packedbytes} rate 136",
+                lambda: keccak.sponge(msg, p.polyz_packedbytes, 136, 0x1F),
+                lambda: keccak.sponge_plain(msg, p.polyz_packedbytes, 136, 0x1F),
+                sponge_work(b, 66, p.polyz_packedbytes, 136))
+
+    # phase 8b's other sponges: the key set-up of keygen and expand_sk at
+    # the `keys` run's N_KEYS keys and the `lockstep` run's LOCKSTEP_Q, and
+    # a lockstep round's B x A c_tilde and ball stream (a generator of
+    # their own, as above)
+    setup_rng = np.random.default_rng(SEED + 6)
+    setup_shapes = [(f"{run} {label}", b, n, out, rate) for run, keys in (("keys", N_KEYS), ("lockstep", LOCKSTEP_Q))
+                    for label, b, n, out, rate in (
+                        ("seedbuf", keys, 32, 128, 136),
+                        ("expand_a", keys * p.K * p.L, 34, p.uniform_blocks * 168, 168),
+                        ("expand_s", keys * (p.K + p.L), 66, p.eta_blocks * 136, 136),
+                        ("tr", keys, p.pk_bytes, 32, 136))]
+    setup_shapes += [("lockstep c_tilde", LOCKSTEP_Q * ATTEMPTS, 64 + p.K * p.polyw1_packedbytes, 32, 136),
+                     ("lockstep ball_stream", LOCKSTEP_Q * ATTEMPTS, 32, p.ball_blocks * 136, 136)]
+    for label, b, n, out, rate in setup_shapes:
+        msg = u8(b, n, g=setup_rng)
+        compare("sponge", f"{label} [{b}, {n}] -> {out} rate {rate}",
+                lambda: keccak.sponge(msg, out, rate, 0x1F),
+                lambda: keccak.sponge_plain(msg, out, rate, 0x1F), sponge_work(b, n, out, rate))
+
     for level, W, kappa_at in ((3, W_MAIN, None), (3, 769, None), (2, W_MAIN, None),
                                (5, W_MAIN, None), (3, 64, 65534)):
         lp = get_params(level)
@@ -294,6 +361,11 @@ def check_kernels(rng, dev, int_ops):
                     lambda: sampling.sample_in_ball_stream(st, tau),
                     lambda: sampling.sample_in_ball_plain(st, tau), ball_work(b, nbytes))
 
+    # a lockstep round's challenges: B x A streams
+    st = keccak.sponge_plain(u8(LOCKSTEP_Q * ATTEMPTS, 32, g=generic_rng), 272, 136, 0x1F)
+    compare("ball", f"lockstep level 3 B={st.shape[0]}", lambda: sampling.sample_in_ball_stream(st, p.tau),
+            lambda: sampling.sample_in_ball_plain(st, p.tau), ball_work(st.shape[0], 272))
+
     def coeffs(b, g=rng):
         return torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
 
@@ -326,6 +398,19 @@ def check_kernels(rng, dev, int_ops):
         # polynomials), w' inverse (Q_MAIN x K)
         (f"verify forward [{Q_MAIN * p.L}, 256]", coeffs(Q_MAIN * p.L, verify_rng), forward, False),
         (f"verify inverse product [{Q_MAIN * p.K}, 256]", coeffs(Q_MAIN * p.K, verify_rng), inv_product, False),
+        # a lockstep round at B = LOCKSTEP_Q, A = ATTEMPTS: y forward (B x A x
+        # L polynomials), w, c s2 and c t0 inverse (B x A x K)
+        (f"lockstep forward [{LOCKSTEP_Q * ATTEMPTS * p.L}, 256]", coeffs(LOCKSTEP_Q * ATTEMPTS * p.L, generic_rng),
+         forward, False),
+        (f"lockstep inverse product [{LOCKSTEP_Q * ATTEMPTS * p.K}, 256]",
+         coeffs(LOCKSTEP_Q * ATTEMPTS * p.K, generic_rng), inv_product, False),
+        # phase 8b's key set-up: keygen's NTT(s1) and A s1 inverse, and
+        # expand_sk's s1, s2 and t0 forward, at N_KEYS and LOCKSTEP_Q keys
+        # (LOCKSTEP_Q x L forward and x K inverse are the verify rows' shapes)
+        (f"keys forward [{N_KEYS * p.L}, 256]", coeffs(N_KEYS * p.L, setup_rng), forward, False),
+        (f"keys forward [{N_KEYS * p.K}, 256]", coeffs(N_KEYS * p.K, setup_rng), forward, False),
+        (f"keys inverse product [{N_KEYS * p.K}, 256]", coeffs(N_KEYS * p.K, setup_rng), inv_product, False),
+        (f"lockstep forward [{LOCKSTEP_Q * p.K}, 256]", coeffs(LOCKSTEP_Q * p.K, setup_rng), forward, False),
     ] + [
         (f"edge {name} {label} [{b}, 256]", fill(b, v), fns, False)
         for b in (129, 513) for label, v in (("zeros", 0), ("q-1", 8380416))
@@ -691,6 +776,342 @@ def check_bench_path(rng, dev, int_ops):
     return rows, launches
 
 
+def counted(fn):
+    """Run fn() with every kernel count set to 0 just before it and read
+    just after -> (its result, {kernel: launches})."""
+    from dilithium_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_kernels.LAUNCHES)
+
+
+def require(launches: dict, kernels, what: str) -> None:
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what} launched no {missing} kernel")
+
+
+def rows_of(a) -> list:
+    return [bytes(r) for r in np.asarray(a)]
+
+
+def u8_rows(rows) -> np.ndarray:
+    return np.stack([np.frombuffer(bytes(r), dtype=np.uint8) for r in rows])
+
+
+def gate_level(level: int, dev) -> str:
+    """Phase 8a at one level: the bytes API on the card against the oracle
+    (see `api_gate`). Returns a summary."""
+    from dilithium_tpu_torch import api, oracle, scheme
+    from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import verify_cases
+
+    p = get_params(level)
+    g = np.random.default_rng(SEED + 80 + level)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    seeds = g.integers(0, 256, (N_GATE_KEYS, 32), dtype=np.uint8)
+    pks, sks = api.keygen(level, [s.tobytes() for s in seeds], device=dev)
+    pk_o, sk_o = oracle.keygen(level, seeds)
+    if pks != rows_of(pk_o) or sks != rows_of(sk_o):
+        raise AssertionError(f"phase 8a level {level}: api.keygen differs from oracle.keygen")
+    msgs = [g.integers(0, 256, int(n), dtype=np.uint8).tobytes() for n in g.integers(0, 301, N_GATE)]
+    ks = g.integers(0, N_GATE_KEYS, N_GATE)
+    mus = api.compute_mu_many(sks[0][64:96], msgs)
+    mus_k = api.compute_mu_many([sks[k][64:96] for k in ks], msgs)
+    sig_o, att_o = oracle.sign(level, np.repeat(sk_o[:1], N_GATE, axis=0), mus)
+    sig_k, att_k = oracle.sign(level, sk_o[ks], mus_k)
+    pairs_k = list(zip(ks.tolist(), msgs))
+
+    signers = {mode: api.Signer(level, sks[0], mode=mode, device=dev) for mode in ("mxu", "batch")}
+    multi = api.MultiSigner(level, sks, device=dev)
+    for name, sigs, want in (("api.sign", api.sign(level, sks[0], msgs, device=dev), sig_o),
+                             ("Signer mxu", signers["mxu"].sign(msgs), sig_o),
+                             ("Signer batch", signers["batch"].sign(msgs), sig_o),
+                             ("MultiSigner", multi.sign(pairs_k), sig_k)):
+        if sigs != rows_of(want):
+            raise AssertionError(f"phase 8a level {level}: {name} differs from oracle.sign")
+    # the scheme calls beneath, in bytes and attempts
+    for name, res, want, att in (
+            ("scheme.sign", scheme.sign(t(sk_o[0]), t(mus), p), sig_o, att_o),
+            ("MxuSigner", signers["mxu"].signer(t(mus)), sig_o, att_o),
+            ("sign_expanded", scheme.sign_expanded(signers["batch"].expanded, t(mus), p), sig_o, att_o),
+            ("sign_stream_keys", scheme.sign_stream_keys(multi.expanded, t(ks), t(mus_k), p), sig_k, att_k)):
+        if not (np.array_equal(res.sig.cpu().numpy(), want) and np.array_equal(res.attempts.cpu().numpy(), att)):
+            raise AssertionError(f"phase 8a level {level}: {name} differs from oracle.sign in bytes or attempts")
+    for name, sigs, want, pk_rows, mu_rows in (
+            ("api.sign", api.sign(level, sks[0], msgs, randomized=True, device=dev), sig_o, pk_o[[0] * N_GATE], mus),
+            ("Signer mxu", signers["mxu"].sign(msgs, randomized=True), sig_o, pk_o[[0] * N_GATE], mus),
+            ("Signer batch", signers["batch"].sign(msgs, randomized=True), sig_o, pk_o[[0] * N_GATE], mus),
+            ("MultiSigner", multi.sign(pairs_k, randomized=True), sig_k, pk_o[ks], mus_k)):
+        if any(a == b for a, b in zip(sigs, rows_of(want))) or not oracle.verify(
+                level, pk_rows, mu_rows, u8_rows(sigs)).all():
+            raise AssertionError(f"phase 8a level {level}: a randomized {name} signature repeats the "
+                                 f"deterministic one or fails oracle.verify")
+
+    # valid pairs, a row of every corruption class (a corrupted mu becomes
+    # another message) and a signature of the wrong length
+    _, sk_f = oracle.keygen(level, g.integers(0, 256, (1, 32), dtype=np.uint8))
+    mu_f = g.integers(0, 256, (1, 64), dtype=np.uint8)
+    bad_sig, bad_mu, names = verify_cases.negative_cases(sig_o, mus, oracle.sign(level, sk_f, mu_f)[0][0],
+                                                         mu_f[0], p, seed=SEED + level)
+    msg_of = {m.tobytes(): msg for m, msg in zip(mus, msgs)}
+    pairs = list(zip(msgs, rows_of(sig_o))) + [(msg_of.get(m.tobytes(), msgs[1] + b"!"), sg.tobytes())
+                                              for sg, m in zip(bad_sig, bad_mu)]
+    expect = oracle.verify(level, pk_o[[0] * len(pairs)], api.compute_mu_many(sks[0][64:96], [m for m, _ in pairs]),
+                           u8_rows(sg for _, sg in pairs)).tolist()
+    if expect != [True] * N_GATE + [False] * len(names):
+        raise AssertionError(f"phase 8a level {level}: the oracle's answers are not as built")
+    pairs.append((msgs[1], rows_of(sig_o)[1][:-1]))
+    expect.append(False)
+    verifiers = {mode: api.Verifier(level, pks[0], mode=mode, device=dev) for mode in ("mxu", "batch")}
+    for name, got in (("api.verify", api.verify(level, pks[0], pairs, device=dev)),
+                      ("Verifier mxu", verifiers["mxu"].verify(pairs)),
+                      ("Verifier batch", verifiers["batch"].verify(pairs))):
+        if got != expect:
+            raise AssertionError(f"phase 8a level {level}: {name} differs from oracle.verify")
+
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("mxu", "batch"):
+            path = os.path.join(d, f"key-{mode}")
+            for cached in (False, True):  # the write, then the reload
+                if os.path.exists(path + ".npz") != cached:
+                    raise AssertionError(f"phase 8a level {level}: the {mode} cache file is not as expected")
+                sigs = api.Signer(level, sks[0], mode=mode, cache_path=path, device=dev).sign(msgs)
+                oks = api.Verifier(level, pks[0], mode=mode, cache_path=path + "-pk", device=dev).verify(pairs)
+                if sigs != rows_of(sig_o) or oks != expect:
+                    raise AssertionError(f"phase 8a level {level}: a {mode} service "
+                                         f"{'loaded from' if cached else 'writing'} its cache differs")
+    return (f"level {level}: keygen of {N_GATE_KEYS} keys, {N_GATE} messages of 0-300 bytes through api.sign, "
+            f"Signer mxu/batch and MultiSigner ({N_GATE_KEYS} keys) == oracle.sign (bytes and attempts "
+            f"beneath), randomized accepted and new; api.verify, Verifier mxu/batch == oracle.verify on "
+            f"{N_GATE} valid, {len(names)} corrupted and 1 short row; caches written and reloaded")
+
+
+def cli_gate() -> str:
+    """Phase 8a, the CLI: `python -m dilithium_tpu_torch --level 3` in
+    subprocesses on the card, in a temporary directory: keygen, sign and
+    verify exit 0, and verify exits 1 once a signature byte is flipped;
+    the files equal the oracle's keys and signatures."""
+    from dilithium_tpu_torch import api, oracle
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x))
+    with tempfile.TemporaryDirectory() as d:
+        def cli(*args):
+            proc = subprocess.run([sys.executable, "-m", "dilithium_tpu_torch", "--level", "3", *args],
+                                  cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+            return proc.returncode, proc.stderr[-2000:]
+
+        seed, pk, sk = (os.path.join(d, n) for n in ("seed", "key.pk", "key.sk"))
+        msgs = [os.path.join(d, n) for n in ("a", "b")]
+        seed_b = bytes(range(32))
+        for path, data in ((seed, seed_b), (msgs[0], b"chip smoke"), (msgs[1], bytes(range(256)) * 3)):
+            with open(path, "wb") as f:
+                f.write(data)
+        runs = [cli("keygen", "--seed", seed, "--pk", pk, "--sk", sk), cli("sign", "--sk", sk, *msgs),
+                cli("verify", "--pk", pk, *msgs)]
+        pk_o, sk_o = oracle.keygen(3, np.frombuffer(seed_b, dtype=np.uint8)[None])
+        with open(pk, "rb") as f1, open(sk, "rb") as f2:
+            keys_ok = f1.read() == pk_o[0].tobytes() and f2.read() == sk_o[0].tobytes()
+        contents = []
+        for m in msgs:
+            with open(m, "rb") as f:
+                contents.append(f.read())
+        sig_o, _ = oracle.sign(3, np.repeat(sk_o, 2, axis=0), api.compute_mu_many(sk_o[0, 64:96].tobytes(), contents))
+        sigs = []
+        for m in msgs:
+            with open(m + ".sig", "rb") as f:
+                sigs.append(f.read())
+        flipped = bytearray(sigs[1])
+        flipped[100] ^= 1
+        with open(msgs[1] + ".sig", "wb") as f:
+            f.write(bytes(flipped))
+        runs.append(cli("verify", "--pk", pk, *msgs))
+    codes = [rc for rc, _ in runs]
+    if codes != [0, 0, 0, 1] or not keys_ok or sigs != rows_of(sig_o):
+        raise AssertionError(f"phase 8a CLI: exit codes {codes} (want [0, 0, 0, 1]), keys equal the oracle's "
+                             f"{keys_ok}, signatures equal {sigs == rows_of(sig_o)}; stderr {[e for _, e in runs]}")
+    return "CLI level 3 on the card: keygen 0, sign 0, verify 0, verify after a flipped byte 1; files == oracle"
+
+
+def check_sig(out) -> np.ndarray:
+    """The signatures of a run: a list of bytes (the API) or a SignResult."""
+    return u8_rows(out) if isinstance(out, list) else out.sig.cpu().numpy()
+
+
+def full_run(name: str, fn, check):
+    """Phase 8b: run fn() once counted (K1, K3 and K4 must launch) with its
+    peak memory, check(result) -> (SignResult beneath, signatures as
+    uint8 numpy), then 3 timed runs. -> (summary, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out, launches = counted(fn)
+    t_first = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    require(launches, ("sponge", "ball", "ntt"), f"phase 8b {name}")
+    res, sig = check(out)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    if not np.array_equal(check_sig(again), sig):
+        raise AssertionError(f"phase 8b {name}: a repeated run gave other signatures")
+    rate = sig.shape[0] / statistics.median(times)
+    att = res.attempts.cpu().numpy()
+    return (f"{name}: {rate:.1f} signs/s (median of 3 runs {[round(x, 4) for x in times]} s; first run "
+            f"{t_first:.3f} s), rounds {res.rounds}, mean attempts {att.mean():.4f}, max_memory_allocated "
+            f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} above the resident); all {sig.shape[0]} ok and "
+            f"verified by the oracle, {N_ORACLE_SIGN} equal oracle.sign in bytes and attempts; launches "
+            f"{launches}"), launches
+
+
+def oracle_gate(name, res, sig, pk_rows, sk_rows, mus) -> None:
+    """Every signature ok and accepted by oracle.verify under its own key;
+    the first N_ORACLE_SIGN equal oracle.sign in bytes and attempts."""
+    from dilithium_tpu_torch import oracle
+
+    if not bool(res.ok.all()):
+        raise AssertionError(f"phase 8b {name}: {int((~res.ok).sum())} signatures not ok")
+    if not oracle.verify(3, pk_rows, mus, sig).all():
+        raise AssertionError(f"phase 8b {name}: the oracle rejects a signature")
+    sig_o, att_o = oracle.sign(3, sk_rows[:N_ORACLE_SIGN], mus[:N_ORACLE_SIGN])
+    if not (np.array_equal(sig[:N_ORACLE_SIGN], sig_o)
+            and np.array_equal(res.attempts[:N_ORACLE_SIGN].cpu().numpy(), att_o)):
+        raise AssertionError(f"phase 8b {name}: signatures differ from the oracle's")
+
+
+def full_width(dev):
+    """Phase 8b: the JAX package's bench operating points at Dilithium-3,
+    full width: `keys` (MultiSigner of N_KEYS keys, Q_MAIN messages of
+    MSG_LEN bytes from bytes), `stream` (one key, sign_stream) and
+    `lockstep` (LOCKSTEP_Q keys, scheme.sign); then one profiled stream
+    queue. -> {kernel: launches of the three counted runs}."""
+    from dilithium_tpu_torch import api, oracle, scheme
+    from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import round_profile
+
+    p = get_params(3)
+    g = np.random.default_rng(SEED + 90)
+    total = Counter()
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    # keys: raw message bytes -> compute_mu_many -> sign_stream_keys -> bytes
+    seeds = g.integers(0, 256, (N_KEYS, 32), dtype=np.uint8)
+    t0 = time.perf_counter()
+    pks, sks = api.keygen(3, [s.tobytes() for s in seeds], device=dev)
+    multi = api.MultiSigner(3, sks, window=W_MAIN, device=dev)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t0
+    pk_o, sk_o = oracle.keygen(3, seeds)
+    if pks != rows_of(pk_o) or sks != rows_of(sk_o):
+        raise AssertionError("phase 8b keys: api.keygen differs from oracle.keygen")
+    ks = g.integers(0, N_KEYS, Q_MAIN)
+    msgs = [m.tobytes() for m in g.integers(0, 256, (Q_MAIN, MSG_LEN), dtype=np.uint8)]
+    pairs = list(zip(ks.tolist(), msgs))
+    mus_k = api.compute_mu_many([sks[k][64:96] for k in ks], msgs)
+
+    def check_keys(sigs):
+        sig = u8_rows(sigs)
+        res = scheme.sign_stream_keys(multi.expanded, t(ks), t(mus_k), p, window=W_MAIN)
+        if not np.array_equal(res.sig.cpu().numpy(), sig):
+            raise AssertionError("phase 8b keys: MultiSigner differs from sign_stream_keys beneath it")
+        oracle_gate("keys", res, sig, pk_o[ks], sk_o[ks], mus_k)
+        return res, sig
+
+    line, launches = full_run(f"keys ({N_KEYS} keys, {Q_MAIN} messages of {MSG_LEN} B, W={W_MAIN}, from bytes)",
+                              lambda: multi.sign(pairs), check_keys)
+    total.update(launches)
+    print(f"phase 8b: {line}; key set-up (keygen + expand_sk of {N_KEYS}) {t_keys:.3f} s")
+
+    # stream: one key, sign_stream over Q_MAIN mu
+    t0 = time.perf_counter()
+    ek = scheme.expand_sk(t(sk_o[0]), p)
+    torch.cuda.synchronize()
+    t_ek = time.perf_counter() - t0
+    mus = g.integers(0, 256, (Q_MAIN, 64), dtype=np.uint8)
+    mus_t = t(mus)
+
+    def stream():
+        return scheme.sign_stream(ek, mus_t, p, window=W_MAIN)
+
+    def check_stream(res):
+        sig = res.sig.cpu().numpy()
+        oracle_gate("stream", res, sig, pk_o[[0] * Q_MAIN], sk_o[[0] * Q_MAIN], mus)
+        return res, sig
+
+    line, launches = full_run(f"stream (one key, Q={Q_MAIN}, W={W_MAIN})", stream, check_stream)
+    total.update(launches)
+    print(f"phase 8b: {line}; expand_sk {t_ek:.4f} s")
+    res, us, busy, rest = round_profile.profile_call(stream)
+    if not bool(res.ok.all()):
+        raise AssertionError("phase 8b: the profiled stream queue left a signature not ok")
+    if us is None:
+        print("phase 8b: profile: the profiler recorded no device events; device breakdown not measured")
+    else:
+        groups = ", ".join(f"{gr} {v / res.rounds:.1f} us" for gr, v in us.items() if v)
+        print(f"phase 8b: profile of one stream queue (torch.profiler, CUDA activity): device time per round "
+              f"({res.rounds} rounds) {groups}; total {sum(us.values()) / res.rounds:.1f} us; busy share {busy:.4f}")
+        top = sorted(rest.items(), key=lambda kv: -kv[1])[:TOP_REST]
+        print(f"phase 8b: the rest's {TOP_REST} largest kernels of {len(rest)}, us per round: "
+              + "; ".join(f"{v / res.rounds:.1f} {n[:90]}" for n, v in top))
+
+    # lockstep: LOCKSTEP_Q independent keys, scheme.sign (expand_sk inside)
+    seeds = g.integers(0, 256, (LOCKSTEP_Q, 32), dtype=np.uint8)
+    t0 = time.perf_counter()
+    kp = scheme.keygen(t(seeds), p)
+    torch.cuda.synchronize()
+    t_kg = time.perf_counter() - t0
+    pk_l, sk_l = kp.pk.cpu().numpy(), kp.sk.cpu().numpy()
+    t0 = time.perf_counter()
+    pk_o, sk_o = oracle.keygen(3, seeds)
+    t_okg = time.perf_counter() - t0
+    if not (bool(kp.ok.all()) and np.array_equal(pk_l, pk_o) and np.array_equal(sk_l, sk_o)):
+        raise AssertionError(f"phase 8b lockstep: keygen of {LOCKSTEP_Q} keys differs from oracle.keygen")
+    mus = g.integers(0, 256, (LOCKSTEP_Q, 64), dtype=np.uint8)
+    mus_t = t(mus)
+
+    def check_lockstep(res):
+        sig = res.sig.cpu().numpy()
+        oracle_gate("lockstep", res, sig, pk_l, sk_l, mus)
+        return res, sig
+
+    line, launches = full_run(
+        f"lockstep ({LOCKSTEP_Q} keys, attempts_per_round={ATTEMPTS}, max_rounds={LOCKSTEP_ROUNDS})",
+        lambda: scheme.sign(kp.sk, mus_t, p, attempts_per_round=ATTEMPTS, max_rounds=LOCKSTEP_ROUNDS),
+        check_lockstep)
+    total.update(launches)
+    print(f"phase 8b: {line}; keygen of {LOCKSTEP_Q} keys {t_kg:.3f} s, all equal oracle.keygen "
+          f"({t_okg:.3f} s on the host); card {card_line()}")
+    return total
+
+
+def api_path(dev):
+    """Phase 8: the gate (8a) and the full-width signer runs (8b).
+    -> {kernel: launches of phase 8's counted runs}."""
+    total = Counter()
+    for level in (2, 3, 5):
+        line, launches = counted(lambda: gate_level(level, dev))
+        require(launches, MAIN_KERNELS, f"phase 8a level {level}")
+        total.update(launches)
+        print(f"phase 8a: {line}; launches {launches}")
+    print(f"phase 8a: {cli_gate()}")
+    total.update(full_width(dev))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -723,6 +1144,7 @@ def main() -> int:
     launches, pk, mus_np, sig_np = main_path(rng, dev)
     bench_rows, bench_launches = check_bench_path(rng, dev, int_ops)
     verify_launches = verify_path(pk, mus_np, sig_np, dev)
+    api_launches = api_path(dev)
     rows += bench_rows
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     kernels = []
@@ -733,6 +1155,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "verify_launches": verify_launches[name],
+            "api_launches": api_launches[name],
             "max_abs_err": max(r["err"] for r in mine),
             "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": bound_ms,

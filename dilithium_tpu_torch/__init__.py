@@ -1,14 +1,19 @@
-"""dilithium_tpu_torch — the Dilithium one-key signing path in PyTorch.
+"""dilithium_tpu_torch — Dilithium keygen, sign and verify in PyTorch.
 
 A port of the JAX package `dilithium_tpu` to PyTorch, with a hand-written
-CUDA kernel (sm_90a) in place of every Pallas kernel on the path:
+CUDA kernel (sm_90a) in place of every Pallas kernel:
 
-  keygen (`scheme.keygen`) -> dense per-key operators
-  (`mxu.build_operators`) -> elastic stream signer over int8 GEMMs
-  (`mxu.sign_stream_mxu`, or the `mxu.MxuSigner` module),
-
-and for the kernels of the JAX package's micro-bench and its A/B rigs
-(`bench_kernels`, `tools/`).
+  - keygen (`scheme.keygen`); signing with one key over dense int8
+    operators (`mxu.build_operators` -> `mxu.sign_stream_mxu`, or the
+    `mxu.MxuSigner` module); signing in the NTT form (`scheme.expand_sk`,
+    the lockstep `scheme.sign` / `sign_expanded`, the elastic
+    `scheme.sign_stream` and `sign_stream_keys`); verify per lane, under
+    one expanded public key, or over dense operators (`mxu.MxuVerifier`);
+  - the bytes API (`api`: `keygen`, `sign`, `verify`, `Signer`,
+    `MultiSigner`, `Verifier`) and the CLI (`python -m
+    dilithium_tpu_torch`), on the card unless given device="cpu";
+  - the kernels of the JAX package's micro-bench and its A/B rigs
+    (`bench_kernels`, `tools/`).
 
 Tensors on the CPU run each kernel's plain PyTorch version; tensors on a
 CUDA device run the kernels from `csrc/`, built with nvcc at first use

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from dilithium_tpu_torch.mxu import KeyOperators, VerifyOperators, gemm_layout
-from dilithium_tpu_torch.scheme import ExpandedPk, KeyPair
+from dilithium_tpu_torch.scheme import ExpandedKey, ExpandedPk, KeyPair
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -52,3 +52,9 @@ def expanded_pk_from_numpy(a_hat, t1_hat, tr, device="cuda") -> ExpandedPk:
     """The fields of a JAX `scheme.ExpandedPk`, as numpy, -> `ExpandedPk`."""
     return ExpandedPk(_tensor(a_hat, np.int32, device), _tensor(t1_hat, np.int32, device),
                       _tensor(tr, np.uint8, device))
+
+
+def expanded_key_from_numpy(a_hat, s1_hat, s2_hat, t0_hat, key, tr, device="cuda") -> ExpandedKey:
+    """The fields of a JAX `scheme.ExpandedKey`, as numpy, -> `ExpandedKey`."""
+    return ExpandedKey(*(_tensor(a, np.int32, device) for a in (a_hat, s1_hat, s2_hat, t0_hat)),
+                       _tensor(key, np.uint8, device), _tensor(tr, np.uint8, device))

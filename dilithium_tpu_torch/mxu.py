@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from dilithium_tpu_torch.params import CRHBYTES, D, N, Q, TRBYTES, DilithiumParams
+from dilithium_tpu_torch.params import D, N, Q, TRBYTES, DilithiumParams
 from dilithium_tpu_torch import scheme
 from dilithium_tpu_torch.ops import keccak, ntt, pack, rounding, sampling
 from dilithium_tpu_torch.ops.reduce import center, sub_mod, uncenter
@@ -184,11 +184,7 @@ def sign_stream_mxu(ops: KeyOperators, mu: torch.Tensor, p: DilithiumParams,
     (rhoprime = SHAKE256(key || mu, 64)); pass uniformly random rhoprime
     uint8 [Q, 64] for randomized signing."""
     Q_ = mu.shape[0]
-    if rhoprime is None:
-        key_b = ops.key.expand(Q_, ops.key.shape[-1])
-        rhoprime = keccak.shake256(torch.cat([key_b, mu], dim=-1), CRHBYTES)
-    else:
-        scheme.validate_rhoprime(rhoprime, tuple(mu.shape))
+    rhoprime = scheme._rhoprime(ops.key.expand(Q_, ops.key.shape[-1]), mu, rhoprime)
 
     def attempt(mu_s, rp_s, kappa_s, q_s):
         del q_s  # one key: the operators are slot-invariant

@@ -110,16 +110,24 @@ def invntt(x: torch.Tensor, from_product: bool = True) -> torch.Tensor:
 
 def pointwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """NTT-domain product a * b * R^-1 mod q (the JAX package's Montgomery
-    convention, undone by `invntt(from_product=True)`)."""
+    convention, undone by `invntt(from_product=True)`). Only a is copied
+    to int64: pass a broadcast operand as b."""
     return mont_mul(a, b)
 
 
 def matvec(a_hat: torch.Tensor, s_hat: torch.Tensor) -> torch.Tensor:
     """[..., K, L, 256] x [..., L, 256] -> [..., K, 256], sum over l of
-    pointwise products, one l at a time (a broadcast a_hat, as a one-key
-    verify passes it, is never widened beyond [..., K, 256])."""
+    pointwise products, one l at a time. A broadcast a_hat (one key for
+    many lanes) is never widened beyond [..., K, 256], nor copied to
+    int64: s_hat is the operand `mont_mul` widens."""
     acc = None
     for l in range(a_hat.shape[-2]):
-        prod = mont_mul(a_hat[..., l, :], s_hat[..., l, :].unsqueeze(-2))
+        prod = mont_mul(s_hat[..., l, :].unsqueeze(-2), a_hat[..., l, :])
         acc = prod if acc is None else add_mod(acc, prod)
     return acc
+
+
+def poly_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Negacyclic product a * b mod (X^256 + 1, q), both canonical int32
+    [..., 256]."""
+    return invntt(pointwise(ntt(a), ntt(b)))

@@ -2,7 +2,8 @@
 
 The port's own binding of the shared C++ sources in `cpp/`: keygen, sign
 and verify over batches of numpy arrays, for checking the port's outputs
-byte for byte. The library is built on first use with
+byte for byte, and the multithreaded mu hash (`crh_batch`) that the bytes
+API's `compute_mu_many` runs on the host. The library is built on first use with
 `make -s -C cpp liboracle.so`, under an flock on `<repo>/.oracle_build.lock`,
 the lock file the JAX package's binding takes too, so processes that load
 either binding never link over each other.
@@ -49,6 +50,9 @@ def _lib() -> ctypes.CDLL:
     lib.oracle_keygen_batch.argtypes = [ctypes.c_int, ctypes.c_int, _u8p, _u8p, _u8p]
     lib.oracle_sign_batch.argtypes = [ctypes.c_int, ctypes.c_int, _u8p, _u8p, _u8p, _i32p]
     lib.oracle_verify_batch.argtypes = [ctypes.c_int, ctypes.c_int, _u8p, _u8p, _u8p, _i32p]
+    lib.oracle_crh_batch.argtypes = [ctypes.c_int, _u8p, ctypes.c_int, _u8p,
+                                     ctypes.POINTER(ctypes.c_int64), _u8p, ctypes.c_int]
+    lib.oracle_crh_batch.restype = None
     return lib
 
 
@@ -98,3 +102,31 @@ def verify(level: int, pk: np.ndarray, mu: np.ndarray, sig: np.ndarray):
     res = np.zeros(n, dtype=np.int32)
     _lib().oracle_verify_batch(level, n, _p8(pk), _p8(mu), _p8(sig), _p32(res))
     return res.astype(bool)
+
+
+def crh_batch(trs: np.ndarray, messages, nthreads: int = 0) -> np.ndarray:
+    """mu = SHAKE256(tr || M, 64) over a ragged batch, on a native thread
+    pool: trs uint8 [n, 32] (one a message) or [32] (shared), messages a
+    sequence of n bytes-like of any lengths -> uint8 [n, 64]. nthreads <= 0
+    lets the library pick."""
+    lib = _lib()
+    n = len(messages)
+    trs = _u8(trs)
+    if trs.shape[-1] != 32 or trs.ndim not in (1, 2):
+        # the native code reads exactly 32 bytes a row
+        raise ValueError(f"trs must be [32] or [n, 32] bytes; got {trs.shape}")
+    tr_stride = 0 if trs.ndim == 1 else 32
+    if tr_stride and trs.shape[0] != n:
+        raise ValueError(f"trs rows {trs.shape[0]} != {n} messages")
+    # each message is converted to bytes once, and the lengths and the
+    # joined blob both come from that form: for a memoryview or array of
+    # wider items, len() counts items, not bytes
+    bs = [m if type(m) is bytes else bytes(m) for m in messages]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, bs), dtype=np.int64, count=n), out=offsets[1:])
+    blob = b"".join(bs)
+    msgs = np.frombuffer(blob, dtype=np.uint8) if blob else np.zeros(1, dtype=np.uint8)
+    mus = np.zeros((n, 64), dtype=np.uint8)
+    lib.oracle_crh_batch(n, _p8(trs), tr_stride, _p8(msgs),
+                         offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _p8(mus), nthreads)
+    return mus

@@ -1,22 +1,31 @@
-"""Key generation, the elastic stream-signing loop and verification.
+"""Key generation, signing in its NTT form, and verification.
 
-The port of these parts of `dilithium_tpu/scheme.py`: `keygen`,
-`SignResult`, `validate_rhoprime` and `_stream_loop`, the elastic
-attempt-slot loop that `mxu.sign_stream_mxu` drives; and verify in its
-NTT form, per lane (`verify`) or under one expanded public key
-(`expand_pk` + `verify_expanded`), with the epilogue `_verify_tail` that
-the dense-operator verifier (`mxu.verify_mxu`) shares.
+The port of `dilithium_tpu/scheme.py`: `keygen`; the NTT-domain secret
+key (`ExpandedKey`, `expand_sk`) and one signing attempt over it
+(`_sign_attempt`); the lockstep signer (`sign`, `sign_expanded`: every
+lane tries `attempts_per_round` kappas a round until all have accepted);
+the elastic attempt-slot loop `_stream_loop` and its NTT-form signers for
+one key (`sign_stream`) and for a queue that mixes keys
+(`sign_stream_keys`), which `mxu.sign_stream_mxu` drives too; and verify,
+per lane (`verify`) or under one expanded public key (`expand_pk` +
+`verify_expanded`), with the epilogue `_verify_tail` that the
+dense-operator verifier (`mxu.verify_mxu`) shares.
+
+Key material is broadcast over the batch (and the lockstep signer's
+attempt axis) as `expand` views and reaches only `ntt.pointwise` and
+`ntt.matvec`, never a transform, so it is not copied per lane.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from dilithium_tpu_torch.params import CRHBYTES, D, N, SEEDBYTES, TRBYTES, DilithiumParams
 from dilithium_tpu_torch.ops import keccak, ntt, pack, rounding, sampling
-from dilithium_tpu_torch.ops.reduce import add_mod, center, sub_mod
+from dilithium_tpu_torch.ops.reduce import add_mod, center, sub_mod, uncenter
 
 
 class KeyPair(NamedTuple):
@@ -74,6 +83,130 @@ def validate_rhoprime(rhoprime: torch.Tensor, expected_shape: Tuple[int, ...]) -
         )
     if rhoprime.dtype != torch.uint8:
         raise ValueError(f"rhoprime must be uint8 bytes; got dtype {rhoprime.dtype}")
+
+
+def _rhoprime(key: torch.Tensor, mu: torch.Tensor, rhoprime: torch.Tensor | None) -> torch.Tensor:
+    """rhoprime uint8 [..., 64] for mu uint8 [..., 64] under key rows uint8
+    [..., 32]: SHAKE256(key || mu, 64) for deterministic signing, or the
+    caller's (randomized signing), checked to be one a message."""
+    if rhoprime is None:
+        return keccak.shake256(torch.cat([key, mu], dim=-1), CRHBYTES)
+    validate_rhoprime(rhoprime, tuple(mu.shape))
+    return rhoprime
+
+
+class ExpandedKey(NamedTuple):
+    """NTT-domain secret-key material, computed once a key (or once for
+    each row of a leading key axis)."""
+    a_hat: torch.Tensor  # int32 [..., K, L, 256]
+    s1_hat: torch.Tensor  # int32 [..., L, 256]
+    s2_hat: torch.Tensor  # int32 [..., K, 256]
+    t0_hat: torch.Tensor  # int32 [..., K, 256] = NTT(t0, canonical)
+    key: torch.Tensor  # uint8 [..., 32]
+    tr: torch.Tensor  # uint8 [..., 32]
+
+
+def expand_sk(sk: torch.Tensor, p: DilithiumParams) -> ExpandedKey:
+    """Unpack sk uint8 [..., sk_bytes] and precompute its NTT-domain
+    material. Raises when ExpandA's candidate budget runs out (the JAX
+    package checks this only under DILITHIUM_DEBUG_CHECKS)."""
+    rho, key, tr, s1, s2, t0 = pack.unpack_sk(sk, p)
+    a_hat, ok_a = sampling.expand_a(rho, p)
+    if not bool(ok_a.all()):
+        raise RuntimeError("ExpandA's candidate budget ran out for a key")
+    return ExpandedKey(a_hat, ntt.ntt(s1), ntt.ntt(s2), ntt.ntt(uncenter(t0)), key, tr)
+
+
+def _sign_attempt(a_hat, s1_hat, s2_hat, t0_hat, mu, rhoprime, kappa, p: DilithiumParams):
+    """One candidate signature per lane for nonce kappa, in the NTT form:
+    y -> w -> c -> z with the four rejection tests, 2L + 3K + 1 NTTs a
+    lane. Key material int32 broadcastable to the lanes (a_hat [..., K, L,
+    256], s1_hat [..., L, 256], s2_hat and t0_hat [..., K, 256]); mu and
+    rhoprime uint8 [..., 64]; kappa int [...] -> (c_tilde uint8 [..., 32],
+    z int32 [..., L, 256] canonical, h uint8 [..., K, 256], accept bool
+    [...])."""
+    batch = mu.shape[:-1]
+    y = sampling.expand_mask(rhoprime, kappa, p)
+    w = ntt.invntt(ntt.matvec(a_hat, ntt.ntt(y)))
+    w1, w0 = rounding.decompose(w, p)
+    w1_packed = pack.pack_w1(w1, p).reshape(batch + (p.K * p.polyw1_packedbytes,))
+    c_tilde = keccak.shake256(torch.cat([mu, w1_packed], dim=-1), SEEDBYTES)
+    c, ok_ball = sampling.sample_in_ball(c_tilde.reshape(-1, SEEDBYTES), p)
+    c_hat = ntt.ntt(c).reshape(batch + (1, N))  # pointwise's first operand: the one it widens
+
+    z = add_mod(y, ntt.invntt(ntt.pointwise(c_hat, s1_hat)))
+    w0_cs2 = w0 - center(ntt.invntt(ntt.pointwise(c_hat, s2_hat)))
+    ct0 = center(ntt.invntt(ntt.pointwise(c_hat, t0_hat)))
+    h = rounding.make_hint(w0_cs2 + ct0, w1, p)
+    reject = (
+        rounding.norm_exceeds(center(z), p.gamma1 - p.beta, dim=(-2, -1))
+        | rounding.norm_exceeds(w0_cs2, p.gamma2 - p.beta, dim=(-2, -1))
+        | rounding.norm_exceeds(ct0, p.gamma2, dim=(-2, -1))
+        | (h.sum(dim=(-2, -1), dtype=torch.int32) > p.omega)
+    )
+    return c_tilde, z, h, ~reject & ok_ball.reshape(batch)
+
+
+def sign(sk: torch.Tensor, mu: torch.Tensor, p: DilithiumParams, attempts_per_round: int = 4,
+         max_rounds: int = 64, rhoprime: torch.Tensor | None = None) -> SignResult:
+    """Dilithium sign: sk uint8 [..., sk_bytes], mu uint8 [..., 64] ->
+    SignResult [...], through `expand_sk` and the lockstep
+    `sign_expanded`. Deterministic by default (rhoprime = SHAKE256(key ||
+    mu, 64)); pass uniformly random rhoprime uint8 [..., 64] for
+    randomized signing."""
+    return sign_expanded(expand_sk(sk, p), mu, p, attempts_per_round, max_rounds, rhoprime)
+
+
+def sign_expanded(ek: ExpandedKey, mu: torch.Tensor, p: DilithiumParams, attempts_per_round: int = 4,
+                  max_rounds: int = 64, rhoprime: torch.Tensor | None = None) -> SignResult:
+    """Sign mu uint8 [..., 64] in lockstep under an ExpandedKey that is
+    unbatched (one key for every lane) or batched like mu.
+
+    Each round, every lane tries A = attempts_per_round kappas (kappa +
+    a*L for a < A) and commits its lowest accepting one, so bytes and
+    attempts equal the serial signer's. The loop ends when every lane has
+    accepted, read with one host sync a round, or after max_rounds rounds
+    (ok is False for the lanes left). The signatures are packed once,
+    after the loop."""
+    batch = tuple(mu.shape[:-1])
+    B = math.prod(batch)
+    A = attempts_per_round
+    dev = mu.device
+
+    def lanes(x, core):  # key material -> a [B, A, ...] view, never copied
+        shape = tuple(x.shape[x.dim() - core:])
+        return x.expand(batch + shape).reshape((B,) + shape).unsqueeze(1).expand((B, A) + shape)
+
+    a_hat, s1_hat, s2_hat, t0_hat = (lanes(x, core) for x, core in zip(ek[:4], (3, 2, 2, 2)))
+    rhoprime = _rhoprime(ek.key.expand(batch + (SEEDBYTES,)), mu, rhoprime)
+    mu_r = mu.reshape(B, CRHBYTES).unsqueeze(1).expand(B, A, CRHBYTES)
+    rp_r = rhoprime.reshape(B, CRHBYTES).unsqueeze(1).expand(B, A, CRHBYTES)
+    steps = torch.arange(A, device=dev)
+    rows = torch.arange(B, device=dev)
+
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    kappa = torch.zeros(B, dtype=torch.int64, device=dev)
+    attempts = torch.zeros(B, dtype=torch.int32, device=dev)
+    ct_out = torch.zeros((B, SEEDBYTES), dtype=torch.uint8, device=dev)
+    z_out = torch.zeros((B, p.L, N), dtype=torch.int32, device=dev)
+    h_out = torch.zeros((B, p.K, N), dtype=torch.uint8, device=dev)
+    rounds = 0
+    while rounds < max_rounds and not bool(done.all()):  # the round's one host sync
+        c_tilde, z, h, accept = _sign_attempt(a_hat, s1_hat, s2_hat, t0_hat, mu_r, rp_r,
+                                              kappa.unsqueeze(1) + steps * p.L, p)
+        first = torch.where(accept, steps, A).amin(dim=1)  # A where no attempt accepted
+        sel = first.clamp(max=A - 1)
+        newly = (first < A) & ~done
+        ct_out = torch.where(newly[:, None], c_tilde[rows, sel], ct_out)
+        z_out = torch.where(newly[:, None, None], z[rows, sel], z_out)
+        h_out = torch.where(newly[:, None, None], h[rows, sel], h_out)
+        attempts = torch.where(newly, attempts + first.to(torch.int32) + 1,
+                               torch.where(done, attempts, attempts + A))
+        kappa = torch.where(done | newly, kappa, kappa + A * p.L)
+        done = done | newly
+        rounds += 1
+    sig = pack.pack_sig(ct_out, z_out, h_out, p)
+    return SignResult(sig.reshape(batch + (p.sig_bytes,)), attempts.reshape(batch), done.reshape(batch), rounds)
 
 
 AttemptFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
@@ -181,6 +314,47 @@ def _stream_loop(attempt_fn: AttemptFn, mu: torch.Tensor, rhoprime: torch.Tensor
     sig = pack.pack_sig(ct_out[:Q], z_out[:Q], h_out[:Q], p)
     attempts = att_out[:Q]
     return SignResult(sig, attempts, attempts > 0, rounds)
+
+
+def sign_stream(ek: ExpandedKey, mu: torch.Tensor, p: DilithiumParams, window: int = 768,
+                max_rounds: int = 4096, rhoprime: torch.Tensor | None = None) -> SignResult:
+    """Sign a queue mu uint8 [Q, 64] under one unbatched ExpandedKey with
+    the elastic stream loop over W = min(window, Q) attempt slots, each
+    running `_sign_attempt`. Deterministic by default; pass uniformly
+    random rhoprime uint8 [Q, 64] for randomized signing."""
+    n = mu.shape[0]
+    rhoprime = _rhoprime(ek.key.expand(n, SEEDBYTES), mu, rhoprime)
+
+    def attempt(mu_s, rp_s, kappa_s, q_s):
+        del q_s  # one key: the material is slot-invariant
+        return _sign_attempt(ek.a_hat, ek.s1_hat, ek.s2_hat, ek.t0_hat, mu_s, rp_s, kappa_s, p)
+
+    return _stream_loop(attempt, mu, rhoprime, p, min(window, n), max_rounds)
+
+
+def sign_stream_keys(eks: ExpandedKey, key_idx: torch.Tensor, mu: torch.Tensor, p: DilithiumParams,
+                     window: int = 768, max_rounds: int = 8192,
+                     rhoprime: torch.Tensor | None = None) -> SignResult:
+    """Sign a queue mu uint8 [Q, 64] that mixes keys: eks holds the keys
+    on a leading axis [Nk, ...] (`expand_sk` of a batched sk) and key_idx
+    int [Q] names each message's row. Each attempt slot gathers its
+    message's key material, so keys mix freely in one elastic window and
+    every message's bytes and attempts equal `sign`'s under its key."""
+    n = mu.shape[0]
+    if tuple(key_idx.shape) != (n,):
+        raise ValueError(f"key_idx must have shape ({n},); got {tuple(key_idx.shape)}")
+    key_idx = key_idx.to(torch.int64)
+    n_keys = eks.key.shape[0]
+    if n and not bool(((key_idx >= 0) & (key_idx < n_keys)).all()):
+        raise IndexError(f"key index out of range 0..{n_keys - 1}")
+    rhoprime = _rhoprime(eks.key[key_idx], mu, rhoprime)
+
+    def attempt(mu_s, rp_s, kappa_s, q_s):
+        k = key_idx[q_s]
+        return _sign_attempt(eks.a_hat[k], eks.s1_hat[k], eks.s2_hat[k], eks.t0_hat[k],
+                             mu_s, rp_s, kappa_s, p)
+
+    return _stream_loop(attempt, mu, rhoprime, p, min(window, n), max_rounds)
 
 
 def _verify_tail(w, h, c_tilde, mu, pre_ok, p: DilithiumParams) -> torch.Tensor:

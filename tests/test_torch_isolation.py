@@ -1,7 +1,8 @@
 """The PyTorch port stands apart from the JAX package: its own parameter
 sets equal the JAX package's, its own binding of the C++ oracle gives the
-same bytes as the JAX package's binding, and no module of the port (nor
-`chip_smoke.py`) imports anything named `dilithium_tpu` or `jax`."""
+same bytes as the JAX package's binding (keygen, sign, verify and
+crh_batch), and no module of the port (nor `chip_smoke.py`) imports
+anything named `dilithium_tpu` or `jax`."""
 
 import ast
 import dataclasses
@@ -50,6 +51,9 @@ def test_oracle_binding_matches_jax_binding():
     ok = oracle.verify(2, pk, mus, sig)
     assert ok.tolist() == [True, True, True, False]
     np.testing.assert_array_equal(ok, joracle.verify(2, pk_j, mus, sig))
+    msgs = [b"", bytes(range(7)), memoryview(np.arange(40, dtype=np.uint16)), bytearray(300)]
+    for trs in (seeds, seeds[0]):  # one tr a message, or one shared
+        np.testing.assert_array_equal(oracle.crh_batch(trs, msgs), joracle.crh_batch(trs, msgs))
 
 
 def _imported(path: str):
