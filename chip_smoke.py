@@ -83,10 +83,25 @@ line):
      signs/s (median of 3 timed
      runs after the checked run), rounds and peak memory; then one
      profiled stream queue (device time per round by kernel group, busy
-     share, the rest's largest kernels).
+     share, the rest's largest kernels). 8a ends with the KAT replay
+     (`tools/kat_replay.replay`, levels 2, 3 and 5) when
+     DILITHIUM_KAT_DIR names a directory, and otherwise says it did not
+     run;
+  9. the data-parallel services and the launcher. 9a, a world of one
+     rank (NCCL on the card, a FileStore in a temporary directory): every
+     service of `dilithium_tpu_torch.parallel` on the inputs of phases 5,
+     7 and 8b, equal to their results (sig, attempts and ok, or
+     accept/reject) with counters equal to the local sums, counted (K1-K4
+     must launch), then timed in turns with the single-card call beneath
+     it. 9b, `python -m dilithium_tpu_torch.tools.run_multihost` in one
+     process per visible card over NCCL: `--signer mxu --verify` at
+     16384 messages a card and `--signer keys --nkeys 1 --verify` at 2048
+     a card, every process with the global counters, the shards accepted
+     by oracle.verify and 512 equal to oracle.sign; then phase 9's
+     seconds.
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
 phase 6 for K5-K7; `verify_launches` from phase 7, `api_launches` from
-phase 8's counted runs), error, time,
+phase 8's counted runs, `parallel_launches` from phase 9a's), error, time,
 device-only time, plain time and bound, the card line again, and last
 {"ok": true, "device": {...}}.
 
@@ -553,7 +568,9 @@ def check_other_device(rng_seed: int = SEED + 4):
 
 
 def main_path(rng, dev):
-    """Phase 5: the main path at full size, counted, checked and timed."""
+    """Phase 5: the main path at full size, counted, checked and timed.
+    -> (launches, the key, its operators, the queue and its result, for
+    phases 7 and 9)."""
     from dilithium_tpu_torch import _kernels, mxu, oracle, scheme
     from dilithium_tpu_torch.params import get_params
     from dilithium_tpu_torch.tools import round_profile
@@ -611,19 +628,22 @@ def main_path(rng, dev):
         print("phase 5: profile: the profiler recorded no device events; device breakdown not measured")
     else:
         print(f"phase 5: profile of one more run (torch.profiler, CUDA activity): {round_profile.describe(*prof)}")
-    return launches, kp.pk, mus_np, sig
+    return launches, {"pk": kp.pk, "sk": kp.sk, "ops": signer.operators, "mus": mus, "mus_np": mus_np,
+                      "sig": sig, "res": res}
 
 
-def verify_path(pk, mus_np, sig_np, dev):
+def verify_path(main, dev):
     """Phase 7: one-key verify at full width, Dilithium-3, phase 5's key
     and its Q_MAIN signatures plus a block of corrupted rows: the three
     verifiers against the oracle, counted; verifies/s of `verify_mxu` and
-    `verify_expanded`; one profiled `verify_mxu` call."""
+    `verify_expanded`; one profiled `verify_mxu` call. -> (launches, the
+    rows, their oracle answers and the key material, for phase 9)."""
     from dilithium_tpu_torch import _kernels, mxu, oracle, scheme
     from dilithium_tpu_torch.params import get_params
     from dilithium_tpu_torch.tools import round_profile
 
     p = get_params(3)
+    pk, mus_np, sig_np = main["pk"], main["mus_np"], main["sig"]
     bad_sig, bad_mu, names = negative_rows(3, sig_np[:5], mus_np[:5], SEED + 7)
     sig_all = torch.from_numpy(np.concatenate([sig_np, bad_sig])).to(dev)
     mu_all = torch.from_numpy(np.concatenate([mus_np, bad_mu])).to(dev)
@@ -705,7 +725,8 @@ def verify_path(pk, mus_np, sig_np, dev):
         top = sorted(rest.items(), key=lambda kv: -kv[1])[:TOP_REST]
         print(f"phase 7: the rest's {TOP_REST} largest kernels of {len(rest)}: "
               + "; ".join(f"{us_:.1f} us {name[:90]}" for name, us_ in top))
-    return launches
+    return launches, {"sig": sig_all, "mu": mu_all, "expect": expect, "lane_rows": lane_rows,
+                      "expect_lane": expect_lane, "vops": verifier.operators, "epk": epk}
 
 
 def check_bench_path(rng, dev, int_ops):
@@ -973,7 +994,7 @@ def full_run(name: str, fn, check):
             f"{t_first:.3f} s), rounds {res.rounds}, mean attempts {att.mean():.4f}, max_memory_allocated "
             f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} above the resident); all {sig.shape[0]} ok and "
             f"verified by the oracle, {N_ORACLE_SIGN} equal oracle.sign in bytes and attempts; launches "
-            f"{launches}"), launches
+            f"{launches}"), launches, res
 
 
 def oracle_gate(name, res, sig, pk_rows, sk_rows, mus) -> None:
@@ -996,7 +1017,8 @@ def full_width(dev):
     full width: `keys` (MultiSigner of N_KEYS keys, Q_MAIN messages of
     MSG_LEN bytes from bytes), `stream` (one key, sign_stream) and
     `lockstep` (LOCKSTEP_Q keys, scheme.sign); then one profiled stream
-    queue. -> {kernel: launches of the three counted runs}."""
+    queue. -> ({kernel: launches of the three counted runs}, the `keys`
+    and `lockstep` runs' inputs and results, for phase 9)."""
     from dilithium_tpu_torch import api, oracle, scheme
     from dilithium_tpu_torch.params import get_params
     from dilithium_tpu_torch.tools import round_profile
@@ -1031,8 +1053,10 @@ def full_width(dev):
         oracle_gate("keys", res, sig, pk_o[ks], sk_o[ks], mus_k)
         return res, sig
 
-    line, launches = full_run(f"keys ({N_KEYS} keys, {Q_MAIN} messages of {MSG_LEN} B, W={W_MAIN}, from bytes)",
-                              lambda: multi.sign(pairs), check_keys)
+    line, launches, res_keys = full_run(
+        f"keys ({N_KEYS} keys, {Q_MAIN} messages of {MSG_LEN} B, W={W_MAIN}, from bytes)",
+        lambda: multi.sign(pairs), check_keys)
+    keys = {"eks": multi.expanded, "key_idx": t(ks), "mus": t(mus_k), "res": res_keys}
     total.update(launches)
     print(f"phase 8b: {line}; key set-up (keygen + expand_sk of {N_KEYS}) {t_keys:.3f} s")
 
@@ -1052,7 +1076,7 @@ def full_width(dev):
         oracle_gate("stream", res, sig, pk_o[[0] * Q_MAIN], sk_o[[0] * Q_MAIN], mus)
         return res, sig
 
-    line, launches = full_run(f"stream (one key, Q={Q_MAIN}, W={W_MAIN})", stream, check_stream)
+    line, launches, _ = full_run(f"stream (one key, Q={Q_MAIN}, W={W_MAIN})", stream, check_stream)
     total.update(launches)
     print(f"phase 8b: {line}; expand_sk {t_ek:.4f} s")
     res, us, busy, rest = round_profile.profile_call(stream)
@@ -1088,19 +1112,36 @@ def full_width(dev):
         oracle_gate("lockstep", res, sig, pk_l, sk_l, mus)
         return res, sig
 
-    line, launches = full_run(
+    line, launches, res_lockstep = full_run(
         f"lockstep ({LOCKSTEP_Q} keys, attempts_per_round={ATTEMPTS}, max_rounds={LOCKSTEP_ROUNDS})",
         lambda: scheme.sign(kp.sk, mus_t, p, attempts_per_round=ATTEMPTS, max_rounds=LOCKSTEP_ROUNDS),
         check_lockstep)
     total.update(launches)
     print(f"phase 8b: {line}; keygen of {LOCKSTEP_Q} keys {t_kg:.3f} s, all equal oracle.keygen "
           f"({t_okg:.3f} s on the host); card {card_line()}")
-    return total
+    lockstep = {"seeds": t(seeds), "kp": kp, "mus": mus_t, "res": res_lockstep}
+    return total, {"keys": keys, "lockstep": lockstep}
+
+
+def kat_gate(dev) -> str:
+    """Phase 8a, the KAT replay (`tools/kat_replay.replay`) at levels 2, 3
+    and 5 on the card, when DILITHIUM_KAT_DIR names a directory."""
+    kat_dir = os.environ.get("DILITHIUM_KAT_DIR")
+    if not (kat_dir and os.path.isdir(kat_dir)):
+        return (f"KAT replay: not run, DILITHIUM_KAT_DIR ({kat_dir!r}) names no directory "
+                f"(the corpus is not in the repository)")
+    from dilithium_tpu_torch.tools import kat_replay
+
+    out = kat_replay.replay(device=dev)
+    if out["kat"] != "ok":
+        raise AssertionError(f"phase 8a: the KAT replay failed: {out['failed']}")
+    return (f"KAT replay of {kat_dir}: {out['vectors_per_level']} vectors a level at levels {out['levels']}, "
+            f"all {out['checks']} checks byte-equal on the card")
 
 
 def api_path(dev):
     """Phase 8: the gate (8a) and the full-width signer runs (8b).
-    -> {kernel: launches of phase 8's counted runs}."""
+    -> ({kernel: launches of phase 8's counted runs}, phase 8b's runs)."""
     total = Counter()
     for level in (2, 3, 5):
         line, launches = counted(lambda: gate_level(level, dev))
@@ -1108,8 +1149,196 @@ def api_path(dev):
         total.update(launches)
         print(f"phase 8a: {line}; launches {launches}")
     print(f"phase 8a: {cli_gate()}")
-    total.update(full_width(dev))
+    print(f"phase 8a: {kat_gate(dev)}")
+    launches, runs = full_width(dev)
+    total.update(launches)
+    return total, runs
+
+
+def same_result(name: str, got, want) -> None:
+    """A sharded SignResult equals the phase's SignResult in sig,
+    attempts and ok, and its global counters equal the sums of its local
+    outputs (a world of one rank)."""
+    for field in ("sig", "attempts", "ok"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"phase 9a {name}: {field} differs from the phase it is held to")
+    if (int(got.total_signed), int(got.total_attempts)) != (int(got.ok.sum()), int(got.attempts.sum())):
+        raise AssertionError(f"phase 9a {name}: the all-reduced counters differ from the local sums")
+
+
+def same_answers(name: str, got, want: np.ndarray) -> None:
+    ok, total = got
+    if not np.array_equal(ok.cpu().numpy(), want) or int(total) != int(want.sum()):
+        raise AssertionError(f"phase 9a {name}: accept/reject or total differs from phase 7's answers")
+
+
+def parallel_path(main, ver, full, dev) -> Counter:
+    """Phase 9a: every service of `dilithium_tpu_torch.parallel` in a
+    world of one rank (NCCL on the card, a FileStore in a temporary
+    directory), on the inputs of phases 5, 7 and 8b and equal to their
+    results; each service's checked run counted, then timed in turns with
+    the single-card call beneath it (direct, service, service, direct,
+    direct, service). -> {kernel: launches of the checked runs}."""
+    import torch.distributed as dist
+
+    from dilithium_tpu_torch import mxu, scheme
+    from dilithium_tpu_torch.parallel import (
+        initialize, make_mesh, sharded_keygen, sharded_sign, sharded_sign_stream,
+        sharded_sign_stream_keys, sharded_verify, sharded_verify_stream,
+    )
+    from dilithium_tpu_torch.params import get_params
+
+    p = get_params(3)
+    keys, lock = full["keys"], full["lockstep"]
+    sk, pk, ops, mus, res5 = main["sk"], main["pk"], main["ops"], main["mus"], main["res"]
+    sig_v, mu_v, expect = ver["sig"], ver["mu"], ver["expect"]
+    lane_sig, lane_mu = ver["lane_rows"]
+    total = Counter()
+    with tempfile.TemporaryDirectory() as d:
+        initialize(coordinator=f"file://{d}/store", num_processes=1, process_id=0, device=dev)
+        try:
+            mesh = make_mesh(dev)
+            backend = dist.get_backend()
+            ek = scheme.expand_sk(sk, p)
+            stream = {m: sharded_sign_stream(mesh, p, window=W_MAIN, use_mxu=m) for m in (True, False)}
+            vstream = {m: sharded_verify_stream(mesh, p, use_mxu=m) for m in (True, False)}
+            kg = sharded_keygen(mesh, p)
+            lane_sign = sharded_sign(mesh, p, attempts_per_round=ATTEMPTS, max_rounds=LOCKSTEP_ROUNDS)
+            rep_sign = sharded_sign(mesh, p, replicate_key=True)
+            lane_verify, rep_verify = sharded_verify(mesh, p), sharded_verify(mesh, p, replicate_key=True)
+            keys_svc = sharded_sign_stream_keys(mesh, p, window=W_MAIN)
+            lane_pk = pk.expand(lane_sig.shape[0], -1)
+
+            def check_keygen(out):
+                if not (torch.equal(out[0], lock["kp"].pk) and torch.equal(out[1], lock["kp"].sk)
+                        and bool(out[2].all())):
+                    raise AssertionError("phase 9a sharded_keygen: pk or sk differs from phase 8b lockstep's")
+
+            # name, unit, rows, service call, the single-card call beneath it, check
+            runs = [
+                ("sharded_sign_stream(use_mxu=True)", "signs", Q_MAIN, lambda: stream[True](ops, mus),
+                 lambda: mxu.sign_stream_mxu(ops, mus, p, window=W_MAIN, max_rounds=8192),
+                 lambda r: same_result("sharded_sign_stream mxu", r, res5)),
+                ("sharded_sign_stream(use_mxu=False)", "signs", Q_MAIN, lambda: stream[False](ek, mus),
+                 lambda: scheme.sign_stream(ek, mus, p, window=W_MAIN, max_rounds=8192),
+                 lambda r: same_result("sharded_sign_stream generic", r, res5)),
+                (f"sharded_sign_stream_keys ({N_KEYS} keys)", "signs", Q_MAIN,
+                 lambda: keys_svc(keys["eks"], keys["key_idx"], keys["mus"]),
+                 lambda: scheme.sign_stream_keys(keys["eks"], keys["key_idx"], keys["mus"], p, window=W_MAIN),
+                 lambda r: same_result("sharded_sign_stream_keys", r, keys["res"])),
+                (f"sharded_keygen ({LOCKSTEP_Q} seeds)", "keys", LOCKSTEP_Q, lambda: kg(lock["seeds"]),
+                 lambda: scheme.keygen(lock["seeds"], p), check_keygen),
+                (f"sharded_sign, a key a lane (A={ATTEMPTS}, max_rounds={LOCKSTEP_ROUNDS})", "signs", LOCKSTEP_Q,
+                 lambda: lane_sign(lock["kp"].sk, lock["mus"]),
+                 lambda: scheme.sign(lock["kp"].sk, lock["mus"], p, ATTEMPTS, LOCKSTEP_ROUNDS),
+                 lambda r: same_result("sharded_sign per lane", r, lock["res"])),
+                ("sharded_sign(replicate_key=True)", "signs", Q_MAIN, lambda: rep_sign(sk, mus),
+                 lambda: scheme.sign(sk, mus, p), lambda r: same_result("sharded_sign replicate_key", r, res5)),
+                ("sharded_verify_stream(use_mxu=True)", "verifies", sig_v.shape[0],
+                 lambda: vstream[True](ver["vops"], sig_v, mu_v),
+                 lambda: mxu.verify_mxu(ver["vops"], sig_v, mu_v, p),
+                 lambda r: same_answers("sharded_verify_stream mxu", r, expect)),
+                ("sharded_verify_stream(use_mxu=False)", "verifies", sig_v.shape[0],
+                 lambda: vstream[False](ver["epk"], sig_v, mu_v),
+                 lambda: scheme.verify_expanded(ver["epk"], sig_v, mu_v, p),
+                 lambda r: same_answers("sharded_verify_stream generic", r, expect)),
+                ("sharded_verify, a key a lane", "verifies", lane_sig.shape[0],
+                 lambda: lane_verify(lane_pk, lane_sig, lane_mu),
+                 lambda: scheme.verify(lane_pk, lane_sig, lane_mu, p),
+                 lambda r: same_answers("sharded_verify per lane", r, ver["expect_lane"])),
+                ("sharded_verify(replicate_key=True)", "verifies", sig_v.shape[0],
+                 lambda: rep_verify(pk, sig_v, mu_v),
+                 lambda: scheme.verify_expanded(scheme.expand_pk(pk, p), sig_v, mu_v, p),
+                 lambda r: same_answers("sharded_verify replicate_key", r, expect)),
+            ]
+            for name, unit, rows, service, direct, check in runs:
+                out, launches = counted(service)
+                check(out)
+                total.update(launches)
+                times = {"service": [], "direct": []}
+                for side in ("direct", "service", "service", "direct", "direct", "service"):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    (service if side == "service" else direct)()
+                    torch.cuda.synchronize()
+                    times[side].append(time.perf_counter() - t)
+                rate = {side: rows / statistics.median(ts) for side, ts in times.items()}
+                print(f"phase 9a: {name} on {rows} rows == its phase; service {rate['service']:.1f} {unit}/s, "
+                      f"single-card call {rate['direct']:.1f} {unit}/s (medians of 3 in turns: service "
+                      f"{[round(x, 4) for x in times['service']]} s, direct {[round(x, 4) for x in times['direct']]} "
+                      f"s); launches {launches}")
+        finally:
+            dist.destroy_process_group()
+    require(total, MAIN_KERNELS, "phase 9a")
+    print(f"phase 9a: a world of one rank, {backend} on {dev}: every service == phases 5, 7 and 8b; launches {dict(total)}; "
+          f"card {card_line()}")
     return total
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launcher_path() -> None:
+    """Phase 9b: `python -m dilithium_tpu_torch.tools.run_multihost`, one
+    process per visible card over NCCL, Dilithium-3: the dense-operator
+    signer at 16384 messages a card with --verify, and --signer keys
+    --nkeys 1 --verify at 2048 a card. Every process must report the
+    global counters (signed == verified == the global batch, the same
+    attempts); the concatenated shards must all be accepted by
+    oracle.verify under the launcher's key (--seed 0), and the first
+    N_ORACLE_SIGN equal oracle.sign."""
+    from dilithium_tpu_torch import oracle
+
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x))
+    for flags, per_card in ((["--signer=mxu", "--verify"], Q_MAIN),
+                            (["--signer=keys", "--nkeys=1", "--verify"], 2048)):
+        batch = per_card * n
+        port = free_port()
+        with tempfile.TemporaryDirectory() as d:
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "dilithium_tpu_torch.tools.run_multihost", "--level=3",
+                 f"--coordinator=127.0.0.1:{port}", f"--num-processes={n}", f"--process-id={i}",
+                 f"--global-batch={batch}", *flags, f"--out={os.path.join(d, f'shard_{i}.npy')}"],
+                cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(n)]
+            try:
+                outs = [proc.communicate(timeout=600) for proc in procs]
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            for proc, (out, err) in zip(procs, outs):
+                if proc.returncode != 0:
+                    raise AssertionError(f"phase 9b {' '.join(flags)}: a launcher exited {proc.returncode}: "
+                                         f"{err[-3000:]}")
+            reports = [json.loads(next(ln for ln in reversed(out.splitlines()) if ln.startswith("{")))
+                       for out, _ in outs]
+            shards = np.concatenate([np.load(os.path.join(d, f"shard_{i}.npy")) for i in range(n)])
+        if any((r["signed"], r["verified"], r["global_batch"]) != (batch, batch, batch) for r in reports) \
+                or len({r["attempts"] for r in reports}) != 1:
+            raise AssertionError(f"phase 9b {' '.join(flags)}: the processes' counters are not global: {reports}")
+        rng = np.random.default_rng(0)  # the launcher's derivation at --seed 0
+        pk_o, sk_o = oracle.keygen(3, rng.integers(0, 256, (1, 32), dtype=np.uint8))
+        mus = rng.integers(0, 256, (batch, 64), dtype=np.uint8)
+        if not oracle.verify(3, np.repeat(pk_o, batch, axis=0), mus, shards).all():
+            raise AssertionError(f"phase 9b {' '.join(flags)}: the oracle rejects a signature of the shards")
+        sig_o, _ = oracle.sign(3, np.repeat(sk_o, N_ORACLE_SIGN, axis=0), mus[:N_ORACLE_SIGN])
+        if not np.array_equal(shards[:N_ORACLE_SIGN], sig_o):
+            raise AssertionError(f"phase 9b {' '.join(flags)}: the shards differ from oracle.sign")
+        print(f"phase 9b: run_multihost {' '.join(flags)} --global-batch={batch}, {n} process(es) over NCCL: "
+              f"signed == verified == {batch} in every process, attempts {reports[0]['attempts']}; all "
+              f"{batch} accepted by oracle.verify, {N_ORACLE_SIGN} == oracle.sign; per process elapsed_s "
+              f"{[r['elapsed_s'] for r in reports]}, signs_per_sec {[r['signs_per_sec'] for r in reports]} "
+              f"(first call, key expansion included)"
+              + ("; one card: no cross-card all-reduce ran" if n == 1 else f"; across {n} cards"))
 
 
 def main() -> int:
@@ -1141,10 +1370,14 @@ def main() -> int:
     check_other_device()
     check_small_slice(rng, dev)
     check_small_verify(dev)
-    launches, pk, mus_np, sig_np = main_path(rng, dev)
+    launches, main = main_path(rng, dev)
     bench_rows, bench_launches = check_bench_path(rng, dev, int_ops)
-    verify_launches = verify_path(pk, mus_np, sig_np, dev)
-    api_launches = api_path(dev)
+    verify_launches, ver = verify_path(main, dev)
+    api_launches, full = api_path(dev)
+    t = time.perf_counter()
+    parallel_launches = parallel_path(main, ver, full, dev)
+    launcher_path()
+    print(f"phase 9: {time.perf_counter() - t:.1f} s")
     rows += bench_rows
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     kernels = []
@@ -1155,7 +1388,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "verify_launches": verify_launches[name],
-            "api_launches": api_launches[name],
+            "api_launches": api_launches[name], "parallel_launches": parallel_launches[name],
             "max_abs_err": max(r["err"] for r in mine),
             "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": bound_ms,

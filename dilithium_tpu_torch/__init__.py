@@ -12,6 +12,10 @@ CUDA kernel (sm_90a) in place of every Pallas kernel:
   - the bytes API (`api`: `keygen`, `sign`, `verify`, `Signer`,
     `MultiSigner`, `Verifier`) and the CLI (`python -m
     dilithium_tpu_torch`), on the card unless given device="cpu";
+  - the data-parallel services on `torch.distributed` (`parallel`: one
+    process per card, NCCL; gloo on the CPU) and their launcher
+    (`python -m dilithium_tpu_torch.tools.run_multihost`); the KAT
+    loader (`utils.kat`) and replay (`tools.kat_replay`);
   - the kernels of the JAX package's micro-bench and its A/B rigs
     (`bench_kernels`, `tools/`).
 

@@ -2,7 +2,8 @@
 
 The port's own binding of the shared C++ sources in `cpp/`: keygen, sign
 and verify over batches of numpy arrays, for checking the port's outputs
-byte for byte, and the multithreaded mu hash (`crh_batch`) that the bytes
+byte for byte, the reference NTT (`ntt`, `invntt`, `pointwise`, a
+polynomial at a time), and the multithreaded mu hash (`crh_batch`) that the bytes
 API's `compute_mu_many` runs on the host. The library is built on first use with
 `make -s -C cpp liboracle.so`, under an flock on `<repo>/.oracle_build.lock`,
 the lock file the JAX package's binding takes too, so processes that load
@@ -53,6 +54,11 @@ def _lib() -> ctypes.CDLL:
     lib.oracle_crh_batch.argtypes = [ctypes.c_int, _u8p, ctypes.c_int, _u8p,
                                      ctypes.POINTER(ctypes.c_int64), _u8p, ctypes.c_int]
     lib.oracle_crh_batch.restype = None
+    lib.oracle_ntt.argtypes = [_i32p]
+    lib.oracle_invntt.argtypes = [_i32p]
+    lib.oracle_pointwise.argtypes = [_i32p, _i32p, _i32p]
+    for name in ("oracle_ntt", "oracle_invntt", "oracle_pointwise"):
+        getattr(lib, name).restype = None
     return lib
 
 
@@ -130,3 +136,36 @@ def crh_batch(trs: np.ndarray, messages, nthreads: int = 0) -> np.ndarray:
     lib.oracle_crh_batch(n, _p8(trs), tr_stride, _p8(msgs),
                          offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _p8(mus), nthreads)
     return mus
+
+
+def _per_poly(fn, *polys: np.ndarray) -> np.ndarray:
+    """fn(out, *inputs) over int32 [..., 256] polynomials, one a call;
+    the first input is copied into out (in-place transforms) or out
+    starts at zero (pointwise)."""
+    ins = [np.ascontiguousarray(a, dtype=np.int32) for a in polys]
+    if len(ins) == 1:
+        out = ins[0].copy()
+        for row in out.reshape(-1, 256):
+            fn(_p32(row))
+        return out
+    out = np.zeros_like(ins[0])
+    for ro, *rs in zip(out.reshape(-1, 256), *(a.reshape(-1, 256) for a in ins)):
+        fn(_p32(ro), *(_p32(r) for r in rs))
+    return out
+
+
+def ntt(a: np.ndarray) -> np.ndarray:
+    """The reference forward NTT of canonical int32 polynomials [..., 256]."""
+    return _per_poly(_lib().oracle_ntt, a)
+
+
+def invntt(a: np.ndarray) -> np.ndarray:
+    """The reference inverse NTT, scaled by 1/256, of canonical int32
+    polynomials [..., 256]."""
+    return _per_poly(_lib().oracle_invntt, a)
+
+
+def pointwise(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The reference pointwise product a * b * R^-1 mod q of two canonical
+    int32 [..., 256] polynomial batches of one shape."""
+    return _per_poly(_lib().oracle_pointwise, a, b)

@@ -54,6 +54,8 @@ def test_package_imports_without_jax_triton_or_nvcc():
     proc = _probe(_PROBE)
     assert proc.returncode == 0, proc.stderr[-3000:]
     for mod in ("api", "__main__", "mxu", "scheme", "convert", "_kernels", "ops.keccak", "ops.ntt",
+                "parallel", "parallel.mesh", "parallel.service", "tools.run_multihost", "tools.kat_replay",
+                "utils", "utils.kat",
                 "ops.sampling", "ops.pack", "ops.rounding", "ops.reduce", "params",
                 "oracle", "bench_kernels", "tools.xof_exp", "tools.ball_exp",
                 "tools.kernel_ab", "tools.round_profile", "tools.ball_edges", "tools.verify_cases"):

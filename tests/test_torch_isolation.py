@@ -1,7 +1,7 @@
 """The PyTorch port stands apart from the JAX package: its own parameter
 sets equal the JAX package's, its own binding of the C++ oracle gives the
-same bytes as the JAX package's binding (keygen, sign, verify and
-crh_batch), and no module of the port (nor `chip_smoke.py`) imports
+same bytes as the JAX package's binding (keygen, sign, verify,
+crh_batch, ntt, invntt and pointwise), and no module of the port (nor `chip_smoke.py`) imports
 anything named `dilithium_tpu` or `jax`."""
 
 import ast
@@ -54,6 +54,14 @@ def test_oracle_binding_matches_jax_binding():
     msgs = [b"", bytes(range(7)), memoryview(np.arange(40, dtype=np.uint16)), bytearray(300)]
     for trs in (seeds, seeds[0]):  # one tr a message, or one shared
         np.testing.assert_array_equal(oracle.crh_batch(trs, msgs), joracle.crh_batch(trs, msgs))
+    polys = rng.integers(0, 8380417, (2, 3, 256)).astype(np.int32)
+    other = rng.integers(0, 8380417, (2, 3, 256)).astype(np.int32)
+    for name in ("ntt", "invntt"):
+        got = getattr(oracle, name)(polys)
+        assert got.shape == polys.shape and not np.array_equal(got, polys)
+        np.testing.assert_array_equal(got, getattr(joracle, name)(polys))
+    np.testing.assert_array_equal(oracle.invntt(oracle.ntt(polys)), polys)  # a round trip
+    np.testing.assert_array_equal(oracle.pointwise(polys, other), joracle.pointwise(polys, other))
 
 
 def _imported(path: str):
