@@ -47,8 +47,16 @@ line):
      round of K1, K2, K3, K4, the int8 GEMMs and the rest, and the
      device's busy share of that run;
   6. the kernel-bench path: K5 (permutation), K6 (plane-major sponge) and
-     K7 (bit-plane SampleInBall) against their plain versions, bit-equal,
-     K6 also against K1 and K7 against K3; then
+     K7 (bit-plane SampleInBall) against their plain versions, bit-equal:
+     K6 at its primary shape and at a ragged batch (20483), SHAKE128's 21
+     lanes ([1000, 34 B] -> 210 words), a 7-block absorb (832 B -> 8),
+     1 and 37 output words; K6 (with and without the `planes_for`
+     prologue) against K1 at the port's shapes ([3840, 66] and
+     [327680, 66] -> 160 words, [16384, 832] -> 8, [491520, 34] -> 210 at
+     SHAKE128), bit-equal, then timed in turns; K7 against its plain
+     version and K3 at levels 2, 3 and 5, B = 768, 16384, 65536 and 16421,
+     with the stress rows of `tools/ball_edges.py`, timed in turns with
+     K3; one line gives every A/B's answer; then
      `dilithium_tpu_torch.bench_kernels` at full width, counted: K5, K6
      and K7 must have launched;
   7. the verify path at full width: Dilithium-3, phase 5's key and its
@@ -102,7 +110,8 @@ line):
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
 phase 6 for K5-K7; `verify_launches` from phase 7, `api_launches` from
 phase 8's counted runs, `parallel_launches` from phase 9a's), error, time,
-device-only time, plain time and bound, the card line again, and last
+device-only time, plain time, bound and share (bound / device-only time),
+the card line again, and last
 {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes (each input read once, each
@@ -172,9 +181,35 @@ def ntt_work(batch: int, inverse: bool):
     return batch * 2 * 256 * 4, batch * (8 * 128 * BUTTERFLY_OPS + (256 * 4 if inverse else 0))
 
 
-def ball_work(batch: int, nbytes: int):
-    """(bytes, ops) of SampleInBall: the stream read, c (int32) and ok
-    written; ops count one per output coefficient only (a lower bound)."""
+def ball_consumed(stream: torch.Tensor, tau: int) -> torch.Tensor:
+    """Bytes of each stream row that SampleInBall reads (int64 [B]): the 8
+    sign bytes and the rest up to the tau-th take, or the whole row where
+    the walk runs out."""
+    s = stream.to(torch.int32)
+    b, nbytes = s.shape
+    i = torch.full((b,), 256 - tau, dtype=torch.int32, device=s.device)
+    end = torch.full((b,), nbytes, dtype=torch.int64, device=s.device)
+    for pos in range(8, nbytes):
+        take = (s[:, pos] <= i) & (i < 256)
+        i += take.to(torch.int32)
+        end = torch.where(take & (i == 256), pos + 1, end)
+    return end
+
+
+def ball_work(stream: torch.Tensor, tau: int):
+    """(bytes, ops) of SampleInBall on this run's streams: of each row the
+    32-byte sectors that hold the bytes its walk reads (`ball_consumed`,
+    where the row lies in memory), c (int32) and ok written; ops count
+    one per output coefficient only (a lower bound)."""
+    b = stream.shape[0]
+    start = stream.data_ptr() % 32 + torch.arange(b, dtype=torch.int64, device=stream.device) * stream.stride(0)
+    sectors = (start + ball_consumed(stream, tau) - 1) // 32 - start // 32 + 1
+    return int(sectors.sum()) * 32 + b * (256 * 4 + 1), b * 256
+
+
+def ball_stream_work(batch: int, nbytes: int):
+    """(bytes, ops) of SampleInBall as earlier runs bounded it: the whole
+    stream read, whatever the walks need of it."""
     return batch * (nbytes + 256 * 4 + 1), batch * 256
 
 
@@ -228,21 +263,29 @@ def max_abs_err(a, b) -> float:
 
 def comparer(phase: str, rows: list, int_ops: float):
     """compare(kernel, label, fn, plain_fn, work, primary): check fn
-    against plain_fn bit for bit, time both, and append a row."""
+    against plain_fn bit for bit, time both, and append a row. A second
+    bound, `stream_work` (SampleInBall's whole stream, as earlier runs
+    counted it), is printed and kept beside the first."""
     from dilithium_tpu_torch.bench_kernels import device_ms
 
-    def compare(kernel, label, fn, plain_fn, work, primary=False):
+    def compare(kernel, label, fn, plain_fn, work, primary=False, time_plain=True, stream_work=None):
         got, ref = fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         if err != 0.0:
             raise AssertionError(f"{kernel} {label} differs from its plain version")
-        ms, dev_ms, plain_ms = time_ms(fn), device_ms(fn), time_ms(plain_fn)
+        ms, dev_ms = time_ms(fn), device_ms(fn)
+        plain_ms = time_ms(plain_fn) if time_plain else None
         bound_ms, bound_by = bound(work, int_ops)
+        plain = f"{plain_ms:.4f} ms" if time_plain else "not timed"
+        second = ""
+        if stream_work is not None:
+            stream_ms = bound(stream_work, int_ops)[0]
+            second = f"; whole-stream bound {stream_ms:.6f} ms ({stream_ms / dev_ms:.2%})"
         print(f"{phase}: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms device {dev_ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms bound {bound_ms:.6f} ms ({bound_by}, {bound_ms / dev_ms:.2%} of device)")
+              f"plain {plain} bound {bound_ms:.6f} ms ({bound_by}, {bound_ms / dev_ms:.2%} of device){second}")
         rows.append({"kernel": kernel, "shape": label, "err": err, "ms": ms, "device_ms": dev_ms,
-                     "plain_ms": plain_ms, "work": work, "primary": primary})
+                     "plain_ms": plain_ms, "work": work, "stream_work": stream_work, "primary": primary})
     return compare
 
 
@@ -355,7 +398,8 @@ def check_kernels(rng, dev, int_ops):
     stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
 
     compare("ball", f"level 3 B={W_MAIN}", lambda: sampling.sample_in_ball_stream(stream, p.tau),
-            lambda: sampling.sample_in_ball_plain(stream, p.tau), ball_work(W_MAIN, 272), primary=True)
+            lambda: sampling.sample_in_ball_plain(stream, p.tau), ball_work(stream, p.tau), primary=True,
+            stream_work=ball_stream_work(W_MAIN, 272))
     # K3's edges at every level: ragged batches around its 4 warps a block;
     # the band-heavy, exact-limit, all-take, no-take and last-byte rows of
     # `ball_edges` at the top of each batch (four no-take rows after them);
@@ -374,12 +418,14 @@ def check_kernels(rng, dev, int_ops):
             st = flat[offset:].view(b, nbytes)
             compare("ball", f"edge level {level} B={b} {nbytes} B" + (f" offset {offset}" if offset else ""),
                     lambda: sampling.sample_in_ball_stream(st, tau),
-                    lambda: sampling.sample_in_ball_plain(st, tau), ball_work(b, nbytes))
+                    lambda: sampling.sample_in_ball_plain(st, tau), ball_work(st, tau),
+                    stream_work=ball_stream_work(b, nbytes))
 
     # a lockstep round's challenges: B x A streams
     st = keccak.sponge_plain(u8(LOCKSTEP_Q * ATTEMPTS, 32, g=generic_rng), 272, 136, 0x1F)
     compare("ball", f"lockstep level 3 B={st.shape[0]}", lambda: sampling.sample_in_ball_stream(st, p.tau),
-            lambda: sampling.sample_in_ball_plain(st, p.tau), ball_work(st.shape[0], 272))
+            lambda: sampling.sample_in_ball_plain(st, p.tau), ball_work(st, p.tau),
+            stream_work=ball_stream_work(st.shape[0], 272))
 
     def coeffs(b, g=rng):
         return torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
@@ -729,19 +775,32 @@ def verify_path(main, dev):
                       "expect_lane": expect_lane, "vops": verifier.operators, "epk": epk}
 
 
+def ab_turns(sides: dict) -> dict:
+    """Median device-only ms of one call of each side, taken in turns
+    (`bench_kernels.device_ms_turns`)."""
+    from dilithium_tpu_torch.bench_kernels import device_ms_turns
+
+    return {side: statistics.median(ms) for side, ms in device_ms_turns(sides).items()}
+
+
 def check_bench_path(rng, dev, int_ops):
-    """Phase 6: K5-K7 against their plain versions (K6 also against K1,
-    K7 against K3), then the kernel bench at full width, counted."""
+    """Phase 6: K5-K7 against their plain versions at their primary and
+    edge shapes, K6 against K1 and K7 against K3 at the port's own shapes
+    (bit-equal, then timed in turns), then the kernel bench at full width,
+    counted."""
     from dilithium_tpu_torch import _kernels, bench_kernels
     from dilithium_tpu_torch.ops import keccak, sampling
-    from dilithium_tpu_torch.params import SHAKE256_RATE, get_params
-    from dilithium_tpu_torch.tools import ball_exp, xof_exp
+    from dilithium_tpu_torch.params import SHAKE128_RATE, SHAKE256_RATE, get_params
+    from dilithium_tpu_torch.tools import ball_edges, ball_exp, round_profile, xof_exp
 
     rows = []
     compare = comparer("phase 6", rows, int_ops)
 
     def lanes(b):
         return torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, (b, 25), dtype=np.int64)).to(dev)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
 
     planes = lanes(N_STATES).t().contiguous()
     compare("permute", f"planes [25, {N_STATES}]", lambda: keccak.keccak_f1600_planes(planes),
@@ -751,34 +810,122 @@ def check_bench_path(rng, dev, int_ops):
     compare("permute", "[16421, 25]", lambda: keccak.keccak_f1600(st),
             lambda: keccak.keccak_f1600_plain(st), (st.shape[0] * 400, st.shape[0] * PERM_OPS))
 
+    def planes_case(b, msg_len, out_words, rate, primary=False, form=None):
+        msgs = u8(b, msg_len)
+        xp = xof_exp.planes_for(msgs, rate)
+        rate_w = rate // 8
+        launched = xof_exp.k6_form(b)
+        if form is not None and launched != form:
+            raise AssertionError(f"K6 launches its {launched} form at {b} messages; the row is for the {form} form")
+        compare("sponge_planes", f"[{xp.shape[0]}, {b}] -> [{b}, {out_words}] rate {rate} ({launched} form)",
+                lambda: xof_exp.shake_words_batchmajor(xp, out_words, rate_w),
+                lambda: xof_exp.shake_words_batchmajor_plain(xp, out_words, rate_w),
+                (b * (xp.shape[0] + out_words) * 4, sponge_work(b, msg_len, 4 * out_words, rate)[1]),
+                primary=primary)
+        return msgs
+
     xb = bench_kernels.XOF_BATCH
-    msgs = torch.from_numpy(rng.integers(0, 256, (xb, 66), dtype=np.uint8)).to(dev)
-    xp = xof_exp.planes_for(msgs, SHAKE256_RATE)
-    rate_w = SHAKE256_RATE // 8
-    compare("sponge_planes", f"[{xp.shape[0]}, {xb}] -> [{xb}, 160]",
-            lambda: xof_exp.shake_words_batchmajor(xp, 160, rate_w),
-            lambda: xof_exp.shake_words_batchmajor_plain(xp, 160, rate_w),
-            (xb * (xp.shape[0] * 4 + 160 * 4), sponge_work(xb, 66, 640, SHAKE256_RATE)[1]), primary=True)
+    msgs = planes_case(xb, 66, 160, SHAKE256_RATE, primary=True)
     k1_err = max_abs_err(xof_exp.xof_bm(msgs, 160, SHAKE256_RATE), keccak.shake_words(msgs, 160, SHAKE256_RATE))
     print(f"phase 6: sponge_planes (planes_for + K6) vs K1 shake_words [{xb}, 66] -> 160 words: max_abs_err {k1_err}")
     if k1_err != 0.0:
         raise AssertionError("K6 differs from K1")
     rows[-1]["err"] = max(rows[-1]["err"], k1_err)
+    # edges: a batch that is not a multiple of the block, SHAKE128's 21
+    # lanes (ExpandA's 840 bytes), a 7-block absorb (c_tilde's 832 bytes),
+    # one output word and an odd count; these batches take the pair form
+    for b, msg_len, out_words, rate in ((xb + 3, 66, 160, SHAKE256_RATE), (1000, 34, 210, SHAKE128_RATE),
+                                        (1000, 832, 8, SHAKE256_RATE), (1000, 66, 1, SHAKE256_RATE),
+                                        (1000, 66, 37, SHAKE256_RATE)):
+        planes_case(b, msg_len, out_words, rate)
+    # and the thread form's (the larger batches' form) at a batch that is
+    # not a multiple of its warp: one output word, an odd count, SHAKE128
+    for msg_len, out_words, rate in ((66, 1, SHAKE256_RATE), (66, 37, SHAKE256_RATE), (34, 210, SHAKE128_RATE)):
+        planes_case(16421, msg_len, out_words, rate, form="thread")
 
+    # K6 against K1 at the port's shapes: a stream round's ExpandMask,
+    # verify's c_tilde', a lockstep round's ExpandMask, key set-up's ExpandA
+    answers = []
+    for b, msg_len, out_words, rate in ((3840, 66, 160, SHAKE256_RATE), (16384, 832, 8, SHAKE256_RATE),
+                                        (327680, 66, 160, SHAKE256_RATE), (491520, 34, 210, SHAKE128_RATE)):
+        msgs = u8(b, msg_len)
+        xp = xof_exp.planes_for(msgs, rate)
+        k1 = keccak.shake_words(msgs, out_words, rate)
+        err = max(max_abs_err(xof_exp.xof_bm(msgs, out_words, rate), k1),
+                  max_abs_err(xof_exp.shake_words_batchmajor(xp, out_words, rate // 8).to(torch.int64) & 0xFFFFFFFF,
+                              k1))
+        if err != 0.0:
+            raise AssertionError(f"K6 differs from K1 at [{b}, {msg_len}] -> {out_words} words")
+        rows.append({"kernel": "sponge_planes", "shape": f"vs K1 [{b}, {msg_len}]", "err": err, "primary": False})
+        del k1
+        med = ab_turns({
+            "K1": lambda: keccak.shake_words(msgs, out_words, rate),
+            "planes+K6": lambda: xof_exp.xof_bm(msgs, out_words, rate),
+            "K6": lambda: xof_exp.shake_words_batchmajor(xp, out_words, rate // 8),
+        })
+        answers.append((f"sponge [{b}, {msg_len}] -> {out_words}w", med))
+        print(f"phase 6: sponge [{b}, {msg_len}] -> {out_words} words, K1 == planes+K6 == K6, device ms "
+              f"(median of 3 in turns): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+
+    # K7's primary row as in earlier runs: level 3, random streams with 4
+    # no-take rows (ok = 0, the j = 0 fill)
     p = get_params(3)
-    for b, primary in ((bench_kernels.BALL_BATCH, True), (W_MAIN, False)):
-        c_tilde = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
-        stream = keccak.shake256(c_tilde, p.ball_blocks * SHAKE256_RATE)
-        stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
-        compare("ball_bitplane", f"B={b}", lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
-                lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau),
-                ball_work(b, stream.shape[1]), primary=primary)
-        v1 = ball_exp.sample_in_ball_v1(stream, p.tau)
-        k3_err = max_abs_err(v1, sampling.sample_in_ball_stream(stream, p.tau))
-        print(f"phase 6: ball_bitplane vs K3 B={b}: max_abs_err {k3_err}; ok rows {int(v1[1].sum())} of {b}")
-        if k3_err != 0.0 or bool(v1[1][:4].any()):
-            raise AssertionError("K7 differs from K3, or a no-take row is ok")
-        rows[-1]["err"] = max(rows[-1]["err"], k3_err)
+    b = bench_kernels.BALL_BATCH
+    stream = keccak.shake256(u8(b, 32), p.ball_blocks * SHAKE256_RATE)
+    stream[:4, 8:] = 255
+    compare("ball_bitplane", f"B={b}", lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
+            lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau), ball_work(stream, p.tau), primary=True,
+            stream_work=ball_stream_work(b, stream.shape[1]))
+    v1 = ball_exp.sample_in_ball_v1(stream, p.tau)
+    if max_abs_err(v1, sampling.sample_in_ball_stream(stream, p.tau)) != 0.0 or bool(v1[1][:4].any()):
+        raise AssertionError("K7 differs from K3, or a no-take row is ok")
+    c_out = torch.empty((b, 256), dtype=torch.int32, device=dev)
+    med = ab_turns({"K3": lambda: sampling.sample_in_ball_stream(stream, p.tau),
+                    "K7": lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
+                    "c.zero_()": c_out.zero_})
+    print(f"phase 6: K7's write floor: zeroing its output int32 [{b}, 256] takes {med['c.zero_()']:.4f} ms "
+          f"on the device (K7 {med['K7']:.4f})")
+
+    def k7_and_floor(n=20):
+        for _ in range(n):
+            ball_exp.sample_in_ball_v1(stream, p.tau)
+            c_out.zero_()
+
+    _, _, _, rest = round_profile.profile_call(k7_and_floor)
+    if rest is None:
+        print("phase 6: K7 and its write floor under torch.profiler: no device events recorded; not measured")
+    else:
+        print("phase 6: K7 and its write floor under torch.profiler (CUDA activity), device us a call of 20: "
+              + "; ".join(f"{name[:70]} {us / 20:.2f}" for name, us in sorted(rest.items(), key=lambda kv: -kv[1])))
+    answers.append((f"ball level 3 B={b} (primary)", {k: med[k] for k in ("K3", "K7")}))
+    # then levels 2, 3 and 5 at the signer's window, the kernel bench's
+    # batch, a lockstep round and a ragged batch, each with the stress rows
+    # of `tools/ball_edges.py` (no-take rows and rows that end on the last
+    # byte among them)
+    for level in (2, 3, 5):
+        p = get_params(level)
+        nbytes = p.ball_blocks * SHAKE256_RATE
+        edges = torch.from_numpy(ball_edges.edge_streams(p.tau, nbytes, seed=SEED + level)).to(dev)
+        for b in (W_MAIN, bench_kernels.BALL_BATCH, 65536, 16421):
+            stream = keccak.shake256(u8(b, 32), nbytes)
+            stream[:edges.shape[0]] = edges
+            compare("ball_bitplane", f"level {level} B={b}", lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
+                    lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau), ball_work(stream, p.tau),
+                    time_plain=b == 16421, stream_work=ball_stream_work(b, nbytes))
+            v1 = ball_exp.sample_in_ball_v1(stream, p.tau)
+            k3_err = max_abs_err(v1, sampling.sample_in_ball_stream(stream, p.tau))
+            if k3_err != 0.0:
+                raise AssertionError(f"K7 differs from K3 at level {level} B={b}")
+            rows[-1]["err"] = max(rows[-1]["err"], k3_err)
+            med = ab_turns({"K3": lambda: sampling.sample_in_ball_stream(stream, p.tau),
+                            "K7": lambda: ball_exp.sample_in_ball_v1(stream, p.tau)})
+            answers.append((f"ball level {level} B={b}", med))
+            print(f"phase 6: ball_bitplane == K3 level {level} B={b} ({edges.shape[0]} stress rows, "
+                  f"ok rows {int(v1[1].sum())} of {b}); device ms in turns: K3 {med['K3']:.4f}, K7 {med['K7']:.4f}")
+    print("phase 6: A/B answers (device ms, the faster side and by how much): " + "; ".join(
+        f"{name}: " + ", ".join(f"{side} {ms:.4f}" for side, ms in med.items())
+        + f" -> {min(med, key=med.get)} faster, {max(med.values()) / min(med.values()):.2f}x the slowest"
+        for name, med in answers))
 
     torch.cuda.synchronize()
     _kernels.reset_launches()
@@ -1385,14 +1532,19 @@ def main() -> int:
         mine = [r for r in rows if r["kernel"] == name]
         primary = next(r for r in mine if r["primary"])
         bound_ms, bound_by = bound(primary["work"], int_ops)
+        # SampleInBall's second bound: the whole stream read, as earlier runs counted it
+        stream_bound = {}
+        if primary.get("stream_work") is not None:
+            stream_ms = bound(primary["stream_work"], int_ops)[0]
+            stream_bound = {"bound_stream_ms": stream_ms, "share_stream": stream_ms / primary["device_ms"]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "verify_launches": verify_launches[name],
             "api_launches": api_launches[name], "parallel_launches": parallel_launches[name],
             "max_abs_err": max(r["err"] for r in mine),
             "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
-            "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shape": primary["shape"],
+            "bound_ms": bound_ms, "share": bound_ms / primary["device_ms"],
+            "bound_by": bound_by, "library_ms": None, "shape": primary["shape"], **stream_bound,
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -8,7 +8,7 @@ The counterpart of the JAX package's `bench_kernels.py`, with its A/B rigs
   - SHAKE128 34 B -> 1008 B and SHAKE256 66 B -> 640 B through K1, at
     n_states / 8 messages;
   - the XOF A/B: SHAKE256 66 B -> 160 words over xof_batch messages
-    (W = 4096 x L = 5 = 20480 by default): A is K1 (`keccak.shake_words`),
+    (20480 by default: the JAX package's W = 4096 x L = 5): A is K1 (`keccak.shake_words`),
     B is the plane prologue + K6 (`tools.xof_exp.xof_bm`), and K6 alone;
   - the ball A/B: SampleInBall at level 3 over ball_batch streams (16384 by
     default): K3 against K7 (`tools.ball_exp.sample_in_ball_v1`);
@@ -39,7 +39,11 @@ from dilithium_tpu_torch.params import Q, SHAKE256_RATE, get_params
 from dilithium_tpu_torch.ops import keccak, ntt, sampling
 from dilithium_tpu_torch.tools import ball_exp, xof_exp
 
-XOF_BATCH = 4096 * 5  # W = 4096 x L = 5: the ExpandMask shape of one round
+# W = 4096 x L = 5: the ExpandMask shape of one round of the JAX package on
+# the TPU (the port's round is W = 768, 3840 messages). Kept so that K6's
+# primary row stays comparable from one run to the next; chip_smoke.py
+# phase 6 times K6 at the port's own shapes.
+XOF_BATCH = 4096 * 5
 BALL_BATCH = 16384
 ROUNDS = 3
 
@@ -101,6 +105,18 @@ def device_ms(fn, n: int = 20, reps: int = 5) -> float:
         else:
             cycles *= 2
     return statistics.median(times)
+
+
+def device_ms_turns(fns: dict, rounds: int = ROUNDS) -> dict:
+    """Device-only ms of one call of each fn (`device_ms`), taken in turns,
+    the order reversed every round -> {name: [ms per round]}."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(device_ms(fns[name]))
+        order.reverse()
+    return times
 
 
 def _same(a, b, what: str) -> None:

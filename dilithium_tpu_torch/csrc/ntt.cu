@@ -49,6 +49,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr uint32_t kQ = 8380417u;
@@ -242,20 +244,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 // most as many as the current device keeps resident at once (each block
 // then walks the batch). The resident count is looked up once a device
 // and kept in a table indexed by the device (0 = not yet looked up).
-constexpr int kMaxDevices = 64;
-
 template <bool kInverse>
 int grid_for(int batch) {
-  static std::atomic<int> resident[kMaxDevices];  // zero-initialised (static storage)
+  static std::atomic<int> resident[dk::kMaxDevices];  // zero-initialised (static storage)
   int dev = 0;
-  cudaGetDevice(&dev);
-  int res = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  const int sms = dk::sm_count(&dev);
+  int res = dev < dk::kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
   if (res == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int per_sm = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, warp_ntt_kernel<kInverse>, kWarps * 32, 0);
-    res = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-    if (dev < kMaxDevices) resident[dev].store(res, std::memory_order_relaxed);
+    res = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < dk::kMaxDevices) resident[dev].store(res, std::memory_order_relaxed);
   }
   const int need = (batch + kWarps - 1) / kWarps;
   return need < res ? need : res;

@@ -3,12 +3,13 @@
 The counterpart of the JAX package's `tools/ball_exp.py`, whose "V0" is
 the shipped kernel (here K3, `ops.sampling.sample_in_ball_stream`) and
 whose "V1" holds the challenge polynomial c as two 256-bit planes, nz
-(c[r] != 0) and sg (c[r] = -1), coefficient r at bit r & 31 of word
-r >> 5. `sample_in_ball_v1` runs V1 as kernel K7
+(c[r] != 0) and sg (c[r] = -1). `sample_in_ball_v1` runs V1 as kernel K7
 (`csrc/ball_bitplane.cu`) on a CUDA tensor and
 `sample_in_ball_v1_plain`, the same bit-plane algorithm in PyTorch, on a
-CPU one. Both have K3's contract; `bench_kernels` times K3 and K7
-interleaved.
+CPU one. Both hold each plane as eight 32-bit words, coefficient r at bit
+r & 31 of word r >> 5: the plain version in int64 [B, 8] tensors, K7 as
+eight (nz, sg) word pairs a message in shared memory. Both have K3's
+contract; `bench_kernels` times K3 and K7 interleaved.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def sample_in_ball_v1(stream: torch.Tensor, tau: int) -> Tuple[torch.Tensor, tor
     stream = stream.contiguous()
     B, nbytes = stream.shape
     c = torch.empty((B, N), dtype=torch.int32, device=stream.device)
-    ok = torch.empty((B,), dtype=torch.uint8, device=stream.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=stream.device)  # K7 writes 0 or 1 a byte
     _kernels.launch("ball_bitplane", stream, stream.data_ptr(), c.data_ptr(), ok.data_ptr(),
                     B, tau, nbytes)
-    return c, ok.bool()
+    return c, ok

@@ -1,6 +1,7 @@
-"""A/B of this checkout's K1 (sponge), K2 (mask limbs), K3 (ball) and K4
-(NTT) against other checkouts', on one card, at the signing path's shapes
-and at large batch.
+"""A/B of this checkout's K1 (sponge), K2 (mask limbs), K3 (ball), K4
+(NTT), K6 (plane-major sponge) and K7 (bit-plane SampleInBall) against
+other checkouts', on one card, at the signing path's shapes and at large
+batch.
 
     python -m dilithium_tpu_torch.tools.kernel_ab OTHER [OTHER ...]
 
@@ -8,8 +9,9 @@ Each OTHER is the root of another checkout of the repo (a `git archive` of
 an earlier commit, say), named by its directory's name. Its
 `dilithium_tpu_torch/_kernels.py` is loaded under another module name and
 builds that checkout's `csrc/` into that checkout's own build directory.
-The C entry points `dk_sponge`, `dk_mask_limbs`, `dk_ball` and `dk_ntt`
-have the same signatures on every side, so all run on the same inputs
+The C entry points `dk_sponge`, `dk_mask_limbs`, `dk_ball`, `dk_ntt`,
+`dk_sponge_planes` and `dk_ball_bitplane` have the same signatures on
+every side, so all run on the same inputs
 into their own output buffers: the outputs must be bit-equal, then each
 side's device-only time of one call (`bench_kernels.device_ms`, 20 calls
 a timing) is taken in turns, the order reversed every round, for ROUNDS
@@ -31,12 +33,19 @@ import numpy as np
 import torch
 
 from dilithium_tpu_torch import _kernels
-from dilithium_tpu_torch.bench_kernels import device_ms
+from dilithium_tpu_torch.bench_kernels import device_ms_turns
 from dilithium_tpu_torch.ops import keccak, ntt
-from dilithium_tpu_torch.params import Q, SHAKE256_RATE, get_params
+from dilithium_tpu_torch.params import Q, SHAKE128_RATE, SHAKE256_RATE, get_params
+from dilithium_tpu_torch.tools import xof_exp
 
 W_MAIN, Q_MAIN = 768, 16384
 NTT_BATCHES = (1, 30, 512, 1024, 4096, 65536)
+# K6: (messages, message bytes, output words, rate): the kernel bench's
+# primary row, a stream round's ExpandMask, verify's c_tilde', a lockstep
+# round's ExpandMask and key set-up's ExpandA
+PLANES_CASES = ((20480, 66, 160, SHAKE256_RATE), (3840, 66, 160, SHAKE256_RATE), (16384, 832, 8, SHAKE256_RATE),
+                (327680, 66, 160, SHAKE256_RATE), (491520, 34, 210, SHAKE128_RATE))
+BITPLANE_BATCHES = (W_MAIN, Q_MAIN, 65536)  # K7, level 3
 ROUNDS = 3
 
 
@@ -99,6 +108,23 @@ def run(other_roots, seed: int = 2026) -> dict:
             side: _checked(lambda lib=lib, o=outs[side], st=st, b=b: lib.dk_ball(
                 st.data_ptr(), o[0].data_ptr(), o[1].data_ptr(), b, p.tau, nbytes, stream))
             for side, lib in libs.items()})
+    for b, n, out_words, rate in PLANES_CASES:
+        planes = xof_exp.planes_for(torch.from_numpy(rng.integers(0, 256, (b, n), dtype=np.uint8)).to(dev), rate)
+        outs = {side: (torch.empty((b, out_words), dtype=torch.int32, device=dev),) for side in libs}
+        cases[f"sponge_planes [{planes.shape[0]}, {b}] -> {out_words}w"] = (outs, {
+            side: _checked(lambda lib=lib, pl=planes, o=outs[side][0], out_words=out_words, rate=rate:
+                           lib.dk_sponge_planes(pl.data_ptr(), o.data_ptr(), pl.shape[1], pl.shape[0], out_words,
+                                                rate // 8, stream))
+            for side, lib in libs.items()})
+    for b in BITPLANE_BATCHES:
+        st = keccak.sponge_plain(torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev),
+                                 nbytes, SHAKE256_RATE, 0x1F)
+        outs = {side: (torch.empty((b, 256), dtype=torch.int32, device=dev),
+                       torch.empty((b,), dtype=torch.uint8, device=dev)) for side in libs}
+        cases[f"ball_bitplane level 3 B={b}"] = (outs, {
+            side: _checked(lambda lib=lib, o=outs[side], st=st, b=b: lib.dk_ball_bitplane(
+                st.data_ptr(), o[0].data_ptr(), o[1].data_ptr(), b, p.tau, nbytes, stream))
+            for side, lib in libs.items()})
     ztab = ntt._ztab_on(dev).data_ptr()
     # the path's 5-30 polynomials, both sides of K4's switch between its
     # block and warp kernels (512), and the kernel bench's batch
@@ -124,12 +150,7 @@ def run(other_roots, seed: int = 2026) -> dict:
                   if not all(torch.equal(a, b) for a, b in zip(outs[side], outs["this"]))]
         if differ:
             raise AssertionError(f"{name}: {differ} differ from this checkout")
-        rows[name] = {side: [] for side in fns}
-        order = list(fns)
-        for _ in range(ROUNDS):
-            for side in order:
-                rows[name][side].append(device_ms(fns[side]))
-            order.reverse()
+        rows[name] = device_ms_turns(fns, ROUNDS)
         med = {side: statistics.median(ms) for side, ms in rows[name].items()}
         print(f"{name:36s} " + "  ".join(
             f"{side} {med[side]:.4f} ms ({med[side] / med['this']:.2f}x this) {[round(x, 4) for x in ms]}"

@@ -17,6 +17,7 @@ and to hashlib. `bench_kernels` times them interleaved.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -36,7 +37,9 @@ def planes_for(data: torch.Tensor, rate: int) -> torch.Tensor:
     return keccak._pad(data, rate, 0x1F).view(torch.int32).t().contiguous()
 
 
-def _check_planes(planes: torch.Tensor, rate_w: int) -> None:
+def _check_planes(planes: torch.Tensor, out_words: int, rate_w: int) -> None:
+    if out_words < 1:
+        raise ValueError(f"out_words must be at least 1; got {out_words}")
     if planes.dtype != torch.int32 or planes.dim() != 2:
         raise ValueError(f"expected int32 planes [n_in_words, B]; got {planes.dtype} {tuple(planes.shape)}")
     if not 1 <= rate_w <= _MAX_RATE_W or planes.shape[0] % (2 * rate_w) or planes.shape[0] == 0:
@@ -46,7 +49,7 @@ def _check_planes(planes: torch.Tensor, rate_w: int) -> None:
 def shake_words_batchmajor_plain(planes: torch.Tensor, out_words: int, rate_w: int) -> torch.Tensor:
     """Plain version of K6: int32 planes [n_in_words, B] -> int32
     [B, out_words] (32-bit words as bit patterns)."""
-    _check_planes(planes, rate_w)
+    _check_planes(planes, out_words, rate_w)
     b = planes.shape[1]
     lanes = planes.t().contiguous().view(torch.int64)  # [B, n_in_words / 2], word 2k low
     st = torch.zeros((b, 25), dtype=torch.int64, device=planes.device)
@@ -67,13 +70,22 @@ def shake_words_batchmajor(planes: torch.Tensor, out_words: int, rate_w: int) ->
     CUDA tensor, the plain version on a CPU one."""
     if not _kernels.on_cuda(planes):
         return shake_words_batchmajor_plain(planes, out_words, rate_w)
-    _check_planes(planes, rate_w)
+    _check_planes(planes, out_words, rate_w)
     planes = planes.contiguous()
     n_in, b = planes.shape
     out = torch.empty((b, out_words), dtype=torch.int32, device=planes.device)
     _kernels.launch("sponge_planes", planes, planes.data_ptr(), out.data_ptr(), b, n_in,
                     out_words, rate_w)
     return out
+
+
+def k6_form(batch: int) -> str:
+    """The form K6 launches at this batch on the current CUDA device,
+    "pair" (two threads a message) or "thread" (one), by the kernel's own
+    rule (`pair_form_first` in `csrc/sponge_planes.cu`)."""
+    fn = _kernels.library().dk_sponge_planes_form
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return "pair" if fn(batch) else "thread"
 
 
 def xof_bm(data: torch.Tensor, out_words: int, rate: int) -> torch.Tensor:
