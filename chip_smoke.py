@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's Dilithium signing and verify paths, its bytes
-API and CLI, and its kernel micro-bench on one CUDA card.
+API and CLI, its kernel micro-bench and its measurement entry points on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -107,9 +108,28 @@ line):
      a card, every process with the global counters, the shards accepted
      by oracle.verify and 512 equal to oracle.sign; then phase 9's
      seconds.
+ 10. the port's measurement entry points at full width, each in its own
+     process: `python -m dilithium_tpu_torch.bench` in its six modes at
+     level 3 and in `mxu` and `verify` at levels 2 and 5
+     (DILITHIUM_BENCH_ITERS=3: three timed blocks of one call, the 15%
+     guard, the gate on), each mode's value, blocks and spread;
+     `tools/sweep_window.py` at level 3 over W = 512, 768, 1024 and 1536;
+     `bench_round` at W = 768; `bench_components` at B = 1024 with its
+     latencies at B = 1 and 64; `tools/profile_sign` (W = 768) and
+     `tools/profile_verify` (B = 16384); `bench_scaling` in one process a
+     visible card. A failure in any exits non-zero; K1-K5 must show
+     launches in the `launches` lines the entry points print;
+     10b. every shape the entry points launched (their `shapes` lines:
+     a kernel and the scalar arguments of its launch) that no row of
+     phases 3 and 6 ran, against its plain version, bit-equal, on
+     inputs of its own generator (K1 at levels 2 and 5 and at
+     bench_components' sizes, K2 at levels 2 and 5 and the sweep's
+     windows, K3 at every tau, K4 at bench_components' batches, K5 on
+     [30720, 25], ...), each row with its time and bound.
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
 phase 6 for K5-K7; `verify_launches` from phase 7, `api_launches` from
-phase 8's counted runs, `parallel_launches` from phase 9a's), error, time,
+phase 8's counted runs, `parallel_launches` from phase 9a's,
+`entry_launches` from phase 10's entry points), error, time,
 device-only time, plain time, bound and share (bound / device-only time),
 the card line again, and last
 {"ok": true, "device": {...}}.
@@ -263,13 +283,18 @@ def max_abs_err(a, b) -> float:
 
 def comparer(phase: str, rows: list, int_ops: float):
     """compare(kernel, label, fn, plain_fn, work, primary): check fn
-    against plain_fn bit for bit, time both, and append a row. A second
+    against plain_fn bit for bit, time both, and append a row, with the
+    shapes (`_kernels.SHAPES` keys) fn's first call launched. A second
     bound, `stream_work` (SampleInBall's whole stream, as earlier runs
     counted it), is printed and kept beside the first."""
+    from dilithium_tpu_torch import _kernels
     from dilithium_tpu_torch.bench_kernels import device_ms
 
     def compare(kernel, label, fn, plain_fn, work, primary=False, time_plain=True, stream_work=None):
-        got, ref = fn(), plain_fn()
+        before = Counter(_kernels.SHAPES)
+        got = fn()
+        shapes = set(_kernels.SHAPES - before)
+        ref = plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         if err != 0.0:
@@ -285,7 +310,8 @@ def comparer(phase: str, rows: list, int_ops: float):
         print(f"{phase}: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms device {dev_ms:.4f} ms "
               f"plain {plain} bound {bound_ms:.6f} ms ({bound_by}, {bound_ms / dev_ms:.2%} of device){second}")
         rows.append({"kernel": kernel, "shape": label, "err": err, "ms": ms, "device_ms": dev_ms,
-                     "plain_ms": plain_ms, "work": work, "stream_work": stream_work, "primary": primary})
+                     "plain_ms": plain_ms, "work": work, "stream_work": stream_work, "primary": primary,
+                     "shapes": shapes})
     return compare
 
 
@@ -1444,7 +1470,7 @@ def launcher_path() -> None:
     n = torch.cuda.device_count()
     torch.cuda.empty_cache()
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x))
+    env = entry_env()
     for flags, per_card in ((["--signer=mxu", "--verify"], Q_MAIN),
                             (["--signer=keys", "--nkeys=1", "--verify"], 2048)):
         batch = per_card * n
@@ -1488,7 +1514,201 @@ def launcher_path() -> None:
               + ("; one card: no cross-card all-reduce ran" if n == 1 else f"; across {n} cards"))
 
 
+BENCH_ITERS = 3  # bench.py's three blocks of one call each
+# phase 10's bench.py runs: every mode at level 3, the dense signer and
+# verify at levels 2 and 5
+BENCH_RUNS = [(3, mode) for mode in ("mxu", "serve", "keys", "stream", "batch", "verify")] + [
+    (level, mode) for level in (2, 5) for mode in ("mxu", "verify")]
+SWEEP_WINDOWS = (512, 768, 1024, 1536)
+ENTRY_KERNELS = ("sponge", "mask_limbs", "ball", "ntt", "permute")
+# bench.py's diagnostics that phase 10 prints beside a mode's line
+BENCH_NOTES = ("set-up", "first call", "peak memory", "serve:")
+
+
+def entry_env(**extra) -> dict:
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x),
+                **{k: str(v) for k, v in extra.items()})
+
+
+def launches_in(stderr: str) -> tuple:
+    """The sums of an entry point's `launches {...}` and `shapes [...]`
+    lines (`bench.log_launches`) -> (Counter by kernel, Counter by shape)."""
+    total, shapes = Counter(), Counter()
+    for ln in stderr.splitlines():
+        if ln.startswith("launches "):
+            total.update(json.loads(ln[len("launches "):]))
+        elif ln.startswith("shapes "):
+            shapes.update({tuple(k[:-1]): k[-1] for k in json.loads(ln[len("shapes "):])})
+    return total, shapes
+
+
+def last_json(out: str):
+    return json.loads(next((ln for ln in reversed(out.splitlines()) if ln.startswith("{")), "null"))
+
+
+def entry_point(args, what: str, timeout: int = 900, **env):
+    """`python -m <args>` from the repo root, to its end -> (its last JSON
+    line, the finished process). Raises when it exits non-zero or its
+    line has no value where it should."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env=entry_env(**env), capture_output=True, text=True, timeout=timeout)
+    line = last_json(proc.stdout)
+    if proc.returncode != 0 or line is None or ("value" in line and line["value"] is None):
+        raise AssertionError(f"phase 10 {what}: exit {proc.returncode}, line {line}: {proc.stderr[-3000:]}")
+    return line, proc
+
+
+def entry_points_path() -> Counter:
+    """Phase 10: the port's measurement entry points at full width, each
+    in its own process: `dilithium_tpu_torch.bench` in every mode at
+    level 3 and in mxu and verify at levels 2 and 5 (3 timed blocks of one
+    call each, its gate on), the window sweep at level 3, `bench_round` at
+    W = 768, `bench_components` at B = 1024 with its latencies, both
+    stage profiles and `bench_scaling` over the visible cards. Returns
+    the launches the entry points report, by kernel and by shape; K1-K5
+    must have launched."""
+    torch.cuda.empty_cache()
+    total, shapes = Counter(), Counter()
+
+    def add(stderr: str) -> None:
+        by_kernel, by_shape = launches_in(stderr)
+        total.update(by_kernel)
+        shapes.update(by_shape)
+
+    t = time.perf_counter()
+    for level, mode in BENCH_RUNS:
+        line, proc = entry_point(["dilithium_tpu_torch.bench"], f"bench {mode} level {level}",
+                                 DILITHIUM_BENCH_MODE=mode, DILITHIUM_BENCH_LEVEL=level,
+                                 DILITHIUM_BENCH_ITERS=BENCH_ITERS)
+        add(proc.stderr)
+        blocks = line["blocks"]
+        notes = [ln for ln in proc.stderr.splitlines() if ln.startswith(BENCH_NOTES)]
+        print(f"phase 10: bench {mode} level {level}: {line['value']} {line['unit']} ({line['device']}, "
+              f"{line['power_limit_w']} W), over the window {line['window_value']}, blocks {blocks}, "
+              f"spread (max - min) / value "
+              f"{(max(blocks) - min(blocks)) / line['value']:.1%}; {'; '.join(notes)}")
+
+    sweep, proc = entry_point(["dilithium_tpu_torch.tools.sweep_window", "3", *map(str, SWEEP_WINDOWS)],
+                              "sweep_window", timeout=1800, DILITHIUM_BENCH_ITERS=BENCH_ITERS)
+    add(proc.stderr)
+    blocks = {ln.split()[0]: json.loads(ln.split(" ", 1)[1])["blocks"]
+              for ln in proc.stdout.splitlines() if ln.startswith("W=") and " {" in ln}
+    print(f"phase 10: sweep_window level 3 (bench mxu, {BENCH_ITERS} blocks of one call): signs/sec "
+          f"{sweep['values']}, best W = {sweep['best_window']}; blocks {blocks}")
+
+    line, proc = entry_point(["dilithium_tpu_torch.bench_round", str(W_MAIN)], "bench_round")
+    add(proc.stderr)
+    print(f"phase 10: bench_round W={W_MAIN}: {json.dumps(line)}")
+    line, proc = entry_point(["dilithium_tpu_torch.bench_components", "1024"], "bench_components")
+    add(proc.stderr)
+    print(f"phase 10: bench_components B=1024 ({line['device']}), ms a call: {json.dumps(line['ms'])}")
+    line, proc = entry_point(["dilithium_tpu_torch.tools.profile_sign", str(W_MAIN), "3"], "profile_sign")
+    add(proc.stderr)
+    print(f"phase 10: profile_sign W={W_MAIN} level 3, us a round (back to back; device only): "
+          f"{json.dumps(line['us_per_round'])}; {json.dumps(line['device_us_per_round'])}")
+    line, proc = entry_point(["dilithium_tpu_torch.tools.profile_verify", str(Q_MAIN)], "profile_verify")
+    add(proc.stderr)
+    print(f"phase 10: profile_verify B={Q_MAIN} level 3, ms a call (back to back; device only): "
+          f"{json.dumps(line['ms'])}; {json.dumps(line['device_ms'])}")
+
+    n = torch.cuda.device_count()
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dilithium_tpu_torch.bench_scaling", f"--coordinator=127.0.0.1:{port}",
+         f"--num-processes={n}", f"--process-id={i}"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=entry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(n)]
+    try:
+        outs = [proc.communicate(timeout=900) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, (_, err) in zip(procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 10 bench_scaling: a rank exited {proc.returncode}: {err[-3000:]}")
+        add(err)
+    print(f"phase 10: bench_scaling over {n} card(s): {json.dumps(last_json(outs[0][0]))}")
+    require(total, ENTRY_KERNELS, "phase 10")
+    print(f"phase 10: {time.perf_counter() - t:.1f} s; launches the entry points report {dict(total)} "
+          f"at {len(shapes)} shapes")
+    return total, shapes
+
+
+def shape_case(key, g, dev):
+    """Inputs for one `_kernels.SHAPES` key, drawn from g -> (label, fn,
+    plain_fn, work, stream_work)."""
+    from dilithium_tpu_torch.ops import keccak, ntt, sampling
+    from dilithium_tpu_torch.params import get_params
+
+    def u8(*shape):
+        return torch.from_numpy(g.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    kernel, *args = key
+    if kernel == "sponge":
+        b, n, out, rate, domain = args
+        msg = u8(b, n)
+        return (f"[{b}, {n}] -> {out} rate {rate} domain {domain:#x}",
+                lambda: keccak.sponge(msg, out, rate, domain), lambda: keccak.sponge_plain(msg, out, rate, domain),
+                sponge_work(b, n, out, rate), None)
+    if kernel == "mask_limbs":
+        W, L, bits, _ = args
+        level = next(lv for lv in (2, 3, 5) if (get_params(lv).L, get_params(lv).gamma1_bits) == (L, bits))
+        lp = get_params(level)
+        rp = u8(W, 64)
+        kappa = torch.from_numpy(g.integers(0, 400, W).astype(np.int32) * L).to(dev)
+        return (f"level {level} W={W} L={L}", lambda: sampling.expand_mask_limbs(rp, kappa, lp),
+                lambda: sampling.mask_limbs_plain(rp, kappa, lp),
+                (W * (64 + 4 + 3 * L * 256), W * L * sponge_work(1, 66, lp.polyz_packedbytes, 136)[1]), None)
+    if kernel == "ball":
+        b, tau, nbytes = args
+        st = u8(b, nbytes)
+        return (f"tau {tau} B={b} {nbytes} B", lambda: sampling.sample_in_ball_stream(st, tau),
+                lambda: sampling.sample_in_ball_plain(st, tau), ball_work(st, tau), ball_stream_work(b, nbytes))
+    if kernel == "ntt":
+        b, inverse, scale, _ = args
+        x = torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
+        if not inverse:
+            return f"forward [{b}, 256]", lambda: ntt.ntt(x), lambda: ntt.ntt_plain(x), ntt_work(b, False), None
+        fp = scale == ntt._SCALE_PRODUCT
+        return (f"inverse {'product' if fp else 'plain'} [{b}, 256]", lambda: ntt.invntt(x, fp),
+                lambda: ntt.invntt_plain(x, fp), ntt_work(b, True), None)
+    if kernel == "permute":
+        b, state_stride, _ = args
+        st = torch.from_numpy(g.integers(-(1 << 63), 1 << 63, (b, 25), dtype=np.int64)).to(dev)
+        work = (b * 400, b * PERM_OPS)
+        if state_stride == 25:
+            return f"[{b}, 25]", lambda: keccak.keccak_f1600(st), lambda: keccak.keccak_f1600_plain(st), work, None
+        planes = st.t().contiguous()
+        return (f"planes [25, {b}]", lambda: keccak.keccak_f1600_planes(planes),
+                lambda: keccak.keccak_f1600_plain(st).t(), work, None)
+    raise AssertionError(f"phase 10b: no inputs for {kernel} at {args}")
+
+
+def check_entry_shapes(shapes: Counter, covered: set, dev, int_ops) -> list:
+    """Phase 10b: every shape phase 10's entry points launched that no row
+    of phases 3 and 6 ran, held against its plain version, bit-equal, on
+    inputs from a generator of its own -> the rows."""
+    rows = []
+    compare = comparer("phase 10b", rows, int_ops)
+    g = np.random.default_rng(SEED + 10)
+    missing = sorted(set(shapes) - covered)
+    t = time.perf_counter()
+    for key in missing:
+        label, fn, plain_fn, work, stream_work = shape_case(key, g, dev)
+        compare(key[0], f"{label} ({shapes[key]} launches in phase 10)", fn, plain_fn, work,
+                time_plain=False, stream_work=stream_work)
+        if key not in rows[-1]["shapes"]:
+            raise AssertionError(f"phase 10b: the row for {key} launched {rows[-1]['shapes']}")
+        torch.cuda.empty_cache()
+    print(f"phase 10b: of the {len(shapes)} shapes phase 10 launched, {len(shapes) - len(missing)} were held "
+          f"by phases 3 and 6, the other {len(missing)} here, all bit-equal, in {time.perf_counter() - t:.1f} s")
+    return rows
+
+
 def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)  # no buffered line is left for a child to repeat
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1525,7 +1745,10 @@ def main() -> int:
     parallel_launches = parallel_path(main, ver, full, dev)
     launcher_path()
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
+    entry_launches, entry_shapes = entry_points_path()
     rows += bench_rows
+    # rows that hold a kernel against another kernel (K6 vs K1) cover no shape
+    rows += check_entry_shapes(entry_shapes, set().union(*(r.get("shapes", ()) for r in rows)), dev, int_ops)
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1541,6 +1764,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "verify_launches": verify_launches[name],
             "api_launches": api_launches[name], "parallel_launches": parallel_launches[name],
+            "entry_launches": entry_launches[name],
             "max_abs_err": max(r["err"] for r in mine),
             "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": bound_ms, "share": bound_ms / primary["device_ms"],

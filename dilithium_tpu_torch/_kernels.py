@@ -11,7 +11,8 @@ builds nothing.
 Each C entry point launches one kernel on the given stream and returns
 `cudaGetLastError()`; `launch` makes the tensors' device current, passes
 its current stream, raises when the result is not 0 and otherwise adds
-one to the kernel's count in `LAUNCHES`.
+one to the kernel's count in `LAUNCHES` and one to the count of its
+shape in `SHAPES`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from functools import lru_cache
 
 import torch
@@ -51,11 +53,20 @@ _SIGNATURES = {
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {name: 0 for name in _SIGNATURES}
+# launches per shape since the last reset_launches(): a shape is the
+# kernel's name and the scalar arguments of its C entry point, in order
+# (sponge: batch, message bytes, output bytes, rate, domain; mask_limbs: W,
+# L, gamma1's bits, gamma1; ball: batch, tau, stream bytes; ntt: batch,
+# inverse, scale, the scale's Shoup factor; permute: batch, state stride,
+# lane stride; sponge_planes: batch, planes, output words, rate words;
+# ball_bitplane: batch, tau, stream bytes)
+SHAPES: Counter = Counter()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPES.clear()
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -160,3 +171,4 @@ def launch(name: str, t: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+    SHAPES[(name, *(a for a, t in zip(args, _SIGNATURES[name]) if t is not _P))] += 1

@@ -139,27 +139,22 @@ def _apply_w(limbs, w_cat: torch.Tensor) -> torch.Tensor:
     return _recombine(*(prods[k] for k in range(5)))
 
 
-def _sign_attempt_mxu(ops: KeyOperators, mu: torch.Tensor, rhoprime: torch.Tensor,
-                      kappa: torch.Tensor, p: DilithiumParams):
-    """One candidate per row: mu uint8 [W, 64], rhoprime uint8 [W, 64],
-    kappa int32 [W] -> (c_tilde uint8 [W, 32], z int32 [W, L, 256]
-    canonical, h uint8 [W, K, 256], accept bool [W])."""
-    W = mu.shape[0]
-    L, K = p.L, p.K
-    limbs = sampling.expand_mask_limbs(rhoprime, kappa, p)  # int8 [3, W, L*N]
-    kn = K * N
-    w = _apply_w(limbs, ops.wy_cat).reshape(W, K, N)
-    # centered y from its limbs (widened before the shifts)
+def _y_centered(limbs: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
+    """Centered y int32 [W, L, N] from its 3 int8 limb planes [3, W, L*N]
+    (widened before the shifts)."""
     l32 = limbs.to(torch.int32)
-    y_cent = (l32[0] + (l32[1] << 8) + (l32[2] << 16)).reshape(W, L, N)
+    return (l32[0] + (l32[1] << 8) + (l32[2] << 16)).reshape(-1, p.L, N)
 
-    w1, w0 = rounding.decompose(w, p)
-    w1_packed = pack.pack_w1(w1, p).reshape(W, K * p.polyw1_packedbytes)
-    c_tilde = keccak.shake256(torch.cat([mu, w1_packed], dim=-1), 32)
-    c, ok_ball = sampling.sample_in_ball(c_tilde, p)
 
-    ln = L * N
-    prod = _dot_i8(center(c).to(torch.int8), ops.c_cat)  # [W, (L+3K)*N]
+def _attempt_tail(c_cat: torch.Tensor, c: torch.Tensor, y_cent: torch.Tensor, w0: torch.Tensor,
+                  w1: torch.Tensor, p: DilithiumParams):
+    """The attempt after its challenge c int32 [W, 256]: cs1, cs2 and ct0
+    from one int8 GEMM against c_cat, z, the hint and the norm checks ->
+    (centered z int32 [W, L, N], h uint8 [W, K, N], reject bool [W])."""
+    W = c.shape[0]
+    L, K = p.L, p.K
+    ln, kn = L * N, K * N
+    prod = _dot_i8(center(c).to(torch.int8), c_cat)  # [W, (L+3K)*N]
     cs1 = prod[:, :ln].reshape(W, L, N)
     cs2 = prod[:, ln:ln + kn].reshape(W, K, N)
     ct0 = (prod[:, ln + kn:ln + 2 * kn] + (prod[:, ln + 2 * kn:] << 7)).reshape(W, K, N)
@@ -173,6 +168,22 @@ def _sign_attempt_mxu(ops: KeyOperators, mu: torch.Tensor, rhoprime: torch.Tenso
         | rounding.norm_exceeds(ct0, p.gamma2, dim=(-2, -1))
         | (h.sum(dim=(-2, -1), dtype=torch.int32) > p.omega)
     )
+    return zc, h, reject
+
+
+def _sign_attempt_mxu(ops: KeyOperators, mu: torch.Tensor, rhoprime: torch.Tensor,
+                      kappa: torch.Tensor, p: DilithiumParams):
+    """One candidate per row: mu uint8 [W, 64], rhoprime uint8 [W, 64],
+    kappa int32 [W] -> (c_tilde uint8 [W, 32], z int32 [W, L, 256]
+    canonical, h uint8 [W, K, 256], accept bool [W])."""
+    W = mu.shape[0]
+    limbs = sampling.expand_mask_limbs(rhoprime, kappa, p)  # int8 [3, W, L*N]
+    w = _apply_w(limbs, ops.wy_cat).reshape(W, p.K, N)
+    w1, w0 = rounding.decompose(w, p)
+    w1_packed = pack.pack_w1(w1, p).reshape(W, p.K * p.polyw1_packedbytes)
+    c_tilde = keccak.shake256(torch.cat([mu, w1_packed], dim=-1), 32)
+    c, ok_ball = sampling.sample_in_ball(c_tilde, p)
+    zc, h, reject = _attempt_tail(ops.c_cat, c, _y_centered(limbs, p), w0, w1, p)
     return c_tilde, uncenter(zc), h, ~reject & ok_ball
 
 
@@ -238,6 +249,21 @@ def build_verify_operators(pk: torch.Tensor, p: DilithiumParams) -> VerifyOperat
     return VerifyOperators(gemm_layout(wz_cat), gemm_layout(t1_cat), tr)
 
 
+def _z_times_a(vops: VerifyOperators, zc: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
+    """A z int32 [B, K*N] canonical, from centered z [B, L, N]: z's int8
+    limbs, 3 GEMMs against wz_cat and the recombine."""
+    return _apply_w(_to_limbs_i8(zc.reshape(zc.shape[0], p.L * N)), vops.wz_cat)
+
+
+def _c_times_t1(vops: VerifyOperators, c: torch.Tensor, p: DilithiumParams) -> torch.Tensor:
+    """c t1 2^d int32 [B, K*N] canonical, from c int32 [B, 256]: one int8
+    GEMM against t1_cat. c has entries {0, +-1}: |c @ T1_j| <= tau * 128,
+    so the limbs' direct sum fits int32."""
+    kn = p.K * N
+    prod = _dot_i8(center(c).to(torch.int8), vops.t1_cat)  # [B, 3*K*N]
+    return _mod_q_i32(prod[:, :kn] + (prod[:, kn:2 * kn] << 8) + (prod[:, 2 * kn:] << 16))
+
+
 def verify_mxu(vops: VerifyOperators, sig: torch.Tensor, mu: torch.Tensor,
                p: DilithiumParams) -> torch.Tensor:
     """Verify sig uint8 [B, sig_bytes], mu uint8 [B, 64] under one key's
@@ -249,13 +275,7 @@ def verify_mxu(vops: VerifyOperators, sig: torch.Tensor, mu: torch.Tensor,
     z_ok = ~rounding.norm_exceeds(zc, p.gamma1 - p.beta, dim=(-2, -1))
     c, _ = sampling.sample_in_ball(c_tilde, p)
 
-    az = _apply_w(_to_limbs_i8(zc.reshape(B, p.L * N)), vops.wz_cat)  # [B, K*N]
-    # c has entries {0, +-1}: |c @ T1_j| <= tau * 128, so the limbs' direct
-    # sum fits int32
-    kn = p.K * N
-    prod = _dot_i8(center(c).to(torch.int8), vops.t1_cat)  # [B, 3*K*N]
-    ct1 = _mod_q_i32(prod[:, :kn] + (prod[:, kn:2 * kn] << 8) + (prod[:, 2 * kn:] << 16))
-    w = sub_mod(az, ct1).reshape(B, p.K, N)
+    w = sub_mod(_z_times_a(vops, zc, p), _c_times_t1(vops, c, p)).reshape(B, p.K, N)
     return scheme._verify_tail(w, h, c_tilde, mu, z_ok & h_ok, p)
 
 
