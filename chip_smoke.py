@@ -663,7 +663,7 @@ def main_path(rng, dev):
     res = signer(mus)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0 - t_key
-    launches = dict(_kernels.LAUNCHES)
+    launches = _kernels.launches()
     missing = [k for k in MAIN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel")
@@ -750,7 +750,7 @@ def verify_path(main, dev):
         got[name] = fn().cpu().numpy()
         top = torch.cuda.max_memory_allocated()
         peak[name] = (top / 2**20, (top - base) / 2**20)
-    launches = dict(_kernels.LAUNCHES)
+    launches = _kernels.launches()
     missing = [k for k in ("sponge", "ball", "ntt") if launches[k] == 0]
     if missing:
         raise AssertionError(f"verify path launched no {missing} kernel")
@@ -958,7 +958,7 @@ def check_bench_path(rng, dev, int_ops):
     t = time.perf_counter()
     res = bench_kernels.run(N_STATES, N_POLYS, dev)
     torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
+    launches = _kernels.launches()
     missing = [k for k in BENCH_KERNELS + ("sponge", "ball", "ntt") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernel-bench path launched no {missing} kernel")
@@ -979,7 +979,7 @@ def counted(fn):
     _kernels.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(_kernels.LAUNCHES)
+    return out, _kernels.launches()
 
 
 def require(launches: dict, kernels, what: str) -> None:

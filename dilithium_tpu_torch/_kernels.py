@@ -11,8 +11,8 @@ builds nothing.
 Each C entry point launches one kernel on the given stream and returns
 `cudaGetLastError()`; `launch` makes the tensors' device current, passes
 its current stream, raises when the result is not 0 and otherwise adds
-one to the kernel's count in `LAUNCHES` and one to the count of its
-shape in `SHAPES`.
+one to the count of its shape in `SHAPES` (`launches()` sums them by
+kernel).
 """
 
 from __future__ import annotations
@@ -51,8 +51,6 @@ _SIGNATURES = {
     "ball_bitplane": [_P, _P, _P, _I, _I, _I, _P],
 }
 
-# launches per kernel since the last reset_launches()
-LAUNCHES = {name: 0 for name in _SIGNATURES}
 # launches per shape since the last reset_launches(): a shape is the
 # kernel's name and the scalar arguments of its C entry point, in order
 # (sponge: batch, message bytes, output bytes, rate, domain; mask_limbs: W,
@@ -64,9 +62,16 @@ SHAPES: Counter = Counter()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
     SHAPES.clear()
+
+
+def launches() -> dict:
+    """Launches per kernel since the last reset_launches(): SHAPES summed
+    by kernel, every kernel named."""
+    out = dict.fromkeys(_SIGNATURES, 0)
+    for (name, *_), n in SHAPES.items():
+        out[name] += n
+    return out
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -170,5 +175,4 @@ def launch(name: str, t: torch.Tensor, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel '{name}' failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
     SHAPES[(name, *(a for a, t in zip(args, _SIGNATURES[name]) if t is not _P))] += 1

@@ -33,7 +33,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from dilithium_tpu_torch import convert, mxu, scheme
+from dilithium_tpu_torch import convert, mxu, scheme, trace
 from dilithium_tpu_torch.ops import keccak
 from dilithium_tpu_torch.params import CRHBYTES, SEEDBYTES, TRBYTES, DilithiumParams, get_params
 
@@ -53,11 +53,16 @@ def _as_rows(rows: Sequence[Bytes], length: int, name: str) -> np.ndarray:
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)  # a writable copy: a may view bytes
+    with trace.span("api.h2d"):
+        return torch.from_numpy(np.array(a)).to(device)  # a writable copy: a may view bytes
 
 
-def _rows(t: torch.Tensor) -> list:
-    return [bytes(r) for r in t.cpu().numpy()]
+def _rows(t: torch.Tensor, row=bytes) -> list:
+    """t's rows as bytes (or its elements as bool, row=bool) on the host."""
+    with trace.span("api.d2h"):  # waits for the device, then the pageable copy
+        a = t.cpu().numpy()
+    with trace.span("api.rows"):
+        return [row(r) for r in a]
 
 
 def _tr_of_sk(sk_b: bytes) -> bytes:
@@ -78,6 +83,11 @@ def compute_mu_many(trs, messages: Sequence[Bytes]) -> np.ndarray:
     oracle's thread pool hashes them (`oracle.crh_batch`); where that
     library cannot be built or lacks the symbol, hashlib does, with one
     warning a process."""
+    with trace.span("api.mu"):
+        return _mu_many(trs, messages)
+
+
+def _mu_many(trs, messages: Sequence[Bytes]) -> np.ndarray:
     n = len(messages)
     if n == 0:
         return np.zeros((0, CRHBYTES), dtype=np.uint8)
@@ -104,7 +114,7 @@ def compute_mu_many(trs, messages: Sequence[Bytes]) -> np.ndarray:
             if not _CRH_FALLBACK_WARNED:
                 _CRH_FALLBACK_WARNED = True
                 warnings.warn(f"native crh_batch unavailable ({e!r}); falling back to "
-                              "per-message hashlib", RuntimeWarning, stacklevel=2)
+                              "per-message hashlib", RuntimeWarning, stacklevel=3)
     return np.stack([np.frombuffer(compute_mu(t, m), dtype=np.uint8)
                      for t, m in zip(tr_list, messages)])
 
@@ -200,7 +210,9 @@ def _fresh_rhoprime(n: int, device) -> torch.Tensor:
 
 
 def _signatures(res: scheme.SignResult) -> list:
-    if not bool(res.ok.all()):
+    with trace.span("api.d2h"):
+        ok = bool(res.ok.all())
+    if not ok:
         raise RuntimeError("sign did not converge within max_rounds")
     return _rows(res.sig)
 
@@ -216,21 +228,23 @@ def sign(level: int, sk: Bytes, messages: Sequence[Bytes], randomized: bool = Fa
         raise ValueError(f"sk has {len(sk_b)} bytes, expected {p.sk_bytes}")
     if not messages:
         return []
-    mus = _tensor(compute_mu_many(_tr_of_sk(sk_b), messages), device)
-    rp = _fresh_rhoprime(len(messages), device) if randomized else None
-    # one unbatched key: expanded once, broadcast over the messages
-    sk_t = _tensor(np.frombuffer(sk_b, dtype=np.uint8), device)
-    return _signatures(scheme.sign(sk_t, mus, p, rhoprime=rp))
+    with trace.span("api.sign"):
+        mus = _tensor(compute_mu_many(_tr_of_sk(sk_b), messages), device)
+        rp = _fresh_rhoprime(len(messages), device) if randomized else None
+        # one unbatched key: expanded once, broadcast over the messages
+        sk_t = _tensor(np.frombuffer(sk_b, dtype=np.uint8), device)
+        return _signatures(scheme.sign(sk_t, mus, p, rhoprime=rp))
 
 
 def _coerce_pairs(p: DilithiumParams, tr: bytes, message_sig_pairs) -> Tuple[np.ndarray, np.ndarray]:
-    sigs = []
-    for _, s in message_sig_pairs:
-        s = bytes(s)
-        if len(s) != p.sig_bytes:
-            s = b"\x01" * p.sig_bytes  # a wrong length never verifies: junk bytes that fail
-        sigs.append(np.frombuffer(s, dtype=np.uint8))
-    return compute_mu_many(tr, [m for m, _ in message_sig_pairs]), np.stack(sigs)
+    with trace.span("api.coerce"):
+        sigs = []
+        for _, s in message_sig_pairs:
+            s = bytes(s)
+            if len(s) != p.sig_bytes:
+                s = b"\x01" * p.sig_bytes  # a wrong length never verifies: junk bytes that fail
+            sigs.append(np.frombuffer(s, dtype=np.uint8))
+        return compute_mu_many(tr, [m for m, _ in message_sig_pairs]), np.stack(sigs)
 
 
 def _pk_bytes(p: DilithiumParams, pk: Bytes) -> bytes:
@@ -248,10 +262,10 @@ def verify(level: int, pk: Bytes, message_sig_pairs: Sequence[Tuple[Bytes, Bytes
     pk_b = _pk_bytes(p, pk)
     if not message_sig_pairs:
         return []
-    mus, sigs = _coerce_pairs(p, hashlib.shake_256(pk_b).digest(TRBYTES), message_sig_pairs)
-    epk = scheme.expand_pk(_tensor(np.frombuffer(pk_b, dtype=np.uint8), device), p)
-    ok = scheme.verify_expanded(epk, _tensor(sigs, device), _tensor(mus, device), p)
-    return [bool(x) for x in ok.cpu().numpy()]
+    with trace.span("api.verify"):
+        mus, sigs = _coerce_pairs(p, hashlib.shake_256(pk_b).digest(TRBYTES), message_sig_pairs)
+        epk = scheme.expand_pk(_tensor(np.frombuffer(pk_b, dtype=np.uint8), device), p)
+        return _rows(scheme.verify_expanded(epk, _tensor(sigs, device), _tensor(mus, device), p), bool)
 
 
 class Signer:
@@ -293,13 +307,14 @@ class Signer:
         """Sign messages -> signatures; randomized as in `sign`."""
         if not messages:
             return []
-        mus = _tensor(compute_mu_many(self.tr, messages), self.device)
-        rp = _fresh_rhoprime(len(messages), self.device) if randomized else None
-        if self.mode == "mxu":
-            res = self.signer(mus, rp)
-        else:
-            res = scheme.sign_expanded(self.expanded, mus, self.p, rhoprime=rp)
-        return _signatures(res)
+        with trace.span("api.sign"):
+            mus = _tensor(compute_mu_many(self.tr, messages), self.device)
+            rp = _fresh_rhoprime(len(messages), self.device) if randomized else None
+            if self.mode == "mxu":
+                res = self.signer(mus, rp)
+            else:
+                res = scheme.sign_expanded(self.expanded, mus, self.p, rhoprime=rp)
+            return _signatures(res)
 
 
 class MultiSigner:
@@ -325,11 +340,12 @@ class MultiSigner:
         idx = np.asarray([i for i, _ in key_message_pairs], dtype=np.int64)
         if idx.min() < 0 or idx.max() >= len(self.trs):
             raise IndexError(f"key index out of range 0..{len(self.trs) - 1}")
-        mus = compute_mu_many([self.trs[i] for i in idx], [m for _, m in key_message_pairs])
-        rp = _fresh_rhoprime(len(idx), self.device) if randomized else None
-        res = scheme.sign_stream_keys(self.expanded, _tensor(idx, self.device), _tensor(mus, self.device),
-                                      self.p, window=self.window, rhoprime=rp)
-        return _signatures(res)
+        with trace.span("api.sign"):
+            mus = compute_mu_many([self.trs[i] for i in idx], [m for _, m in key_message_pairs])
+            rp = _fresh_rhoprime(len(idx), self.device) if randomized else None
+            res = scheme.sign_stream_keys(self.expanded, _tensor(idx, self.device), _tensor(mus, self.device),
+                                          self.p, window=self.window, rhoprime=rp)
+            return _signatures(res)
 
 
 class Verifier:
@@ -365,10 +381,11 @@ class Verifier:
         """Verify (message, signature) pairs -> bools."""
         if not message_sig_pairs:
             return []
-        mus, sigs = _coerce_pairs(self.p, self.tr, message_sig_pairs)
-        sigs_t, mus_t = _tensor(sigs, self.device), _tensor(mus, self.device)
-        if self.mode == "mxu":
-            ok = self.verifier(sigs_t, mus_t)
-        else:
-            ok = scheme.verify_expanded(self.expanded, sigs_t, mus_t, self.p)
-        return [bool(x) for x in ok.cpu().numpy()]
+        with trace.span("api.verify"):
+            mus, sigs = _coerce_pairs(self.p, self.tr, message_sig_pairs)
+            sigs_t, mus_t = _tensor(sigs, self.device), _tensor(mus, self.device)
+            if self.mode == "mxu":
+                ok = self.verifier(sigs_t, mus_t)
+            else:
+                ok = scheme.verify_expanded(self.expanded, sigs_t, mus_t, self.p)
+            return _rows(ok, bool)

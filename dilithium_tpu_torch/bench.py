@@ -90,7 +90,7 @@ def log_launches() -> None:
     """The kernel launches since the last `_kernels.reset_launches()`, on
     stderr: `launches {kernel: count}` and `shapes [[kernel, its scalar
     arguments..., count], ...]` (`_kernels.SHAPES`)."""
-    log("launches " + json.dumps(_kernels.LAUNCHES))
+    log("launches " + json.dumps(_kernels.launches()))
     log("shapes " + json.dumps([[*k, n] for k, n in sorted(_kernels.SHAPES.items())]))
 
 

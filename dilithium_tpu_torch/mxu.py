@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from dilithium_tpu_torch.params import D, N, Q, TRBYTES, DilithiumParams
-from dilithium_tpu_torch import scheme
+from dilithium_tpu_torch import scheme, trace
 from dilithium_tpu_torch.ops import keccak, ntt, pack, rounding, sampling
 from dilithium_tpu_torch.ops.reduce import center, sub_mod, uncenter
 
@@ -195,13 +195,14 @@ def sign_stream_mxu(ops: KeyOperators, mu: torch.Tensor, p: DilithiumParams,
     (rhoprime = SHAKE256(key || mu, 64)); pass uniformly random rhoprime
     uint8 [Q, 64] for randomized signing."""
     Q_ = mu.shape[0]
-    rhoprime = scheme._rhoprime(ops.key.expand(Q_, ops.key.shape[-1]), mu, rhoprime)
 
     def attempt(mu_s, rp_s, kappa_s, q_s):
         del q_s  # one key: the operators are slot-invariant
         return _sign_attempt_mxu(ops, mu_s, rp_s, kappa_s, p)
 
-    return scheme._stream_loop(attempt, mu, rhoprime, p, min(window, Q_), max_rounds)
+    with trace.span("mxu.sign_stream"):
+        rhoprime = scheme._rhoprime(ops.key.expand(Q_, ops.key.shape[-1]), mu, rhoprime)
+        return scheme._stream_loop(attempt, mu, rhoprime, p, min(window, Q_), max_rounds)
 
 
 class MxuSigner(nn.Module):
@@ -269,14 +270,15 @@ def verify_mxu(vops: VerifyOperators, sig: torch.Tensor, mu: torch.Tensor,
     """Verify sig uint8 [B, sig_bytes], mu uint8 [B, 64] under one key's
     dense operators -> bool [B], the same answers as `scheme.verify`.
     SampleInBall's ok is discarded, as in the JAX package."""
-    B = mu.shape[0]
-    c_tilde, z, h, h_ok = pack.unpack_sig(sig, p)
-    zc = center(z)
-    z_ok = ~rounding.norm_exceeds(zc, p.gamma1 - p.beta, dim=(-2, -1))
-    c, _ = sampling.sample_in_ball(c_tilde, p)
+    with trace.span("mxu.verify"):
+        B = mu.shape[0]
+        c_tilde, z, h, h_ok = pack.unpack_sig(sig, p)
+        zc = center(z)
+        z_ok = ~rounding.norm_exceeds(zc, p.gamma1 - p.beta, dim=(-2, -1))
+        c, _ = sampling.sample_in_ball(c_tilde, p)
 
-    w = sub_mod(_z_times_a(vops, zc, p), _c_times_t1(vops, c, p)).reshape(B, p.K, N)
-    return scheme._verify_tail(w, h, c_tilde, mu, z_ok & h_ok, p)
+        w = sub_mod(_z_times_a(vops, zc, p), _c_times_t1(vops, c, p)).reshape(B, p.K, N)
+        return scheme._verify_tail(w, h, c_tilde, mu, z_ok & h_ok, p)
 
 
 class MxuVerifier(nn.Module):

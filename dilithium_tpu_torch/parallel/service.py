@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.distributed as dist
 
-from dilithium_tpu_torch import mxu, scheme
+from dilithium_tpu_torch import mxu, scheme, trace
 from dilithium_tpu_torch.params import DilithiumParams
 from dilithium_tpu_torch.parallel.mesh import Mesh
 
@@ -51,9 +51,10 @@ def _key_shape(key: torch.Tensor, replicate_key: bool, name: str) -> None:
 
 def _all_reduce(mesh: Mesh, *counts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Sum each local count over the ranks, in one all-reduce."""
-    totals = torch.stack([c.to(device=mesh.device, dtype=torch.int64) for c in counts])
-    dist.all_reduce(totals, op=dist.ReduceOp.SUM, group=mesh.group)
-    return tuple(totals.unbind())
+    with trace.span("parallel.all_reduce"):
+        totals = torch.stack([c.to(device=mesh.device, dtype=torch.int64) for c in counts])
+        dist.all_reduce(totals, op=dist.ReduceOp.SUM, group=mesh.group)
+        return tuple(totals.unbind())
 
 
 def _signed(mesh: Mesh, res: scheme.SignResult) -> ShardedSignResult:
@@ -99,11 +100,12 @@ def sharded_sign_stream(mesh: Mesh, p: DilithiumParams, window: int = 768,
 
     def run(km, mu: torch.Tensor) -> ShardedSignResult:
         _on_mesh(mesh, mu)
-        if use_mxu:
-            res = mxu.sign_stream_mxu(km, mu, p, window=window, max_rounds=max_rounds)
-        else:
-            res = scheme.sign_stream(km, mu, p, window=window, max_rounds=max_rounds)
-        return _signed(mesh, res)
+        with trace.span("parallel.sign_stream"):
+            if use_mxu:
+                res = mxu.sign_stream_mxu(km, mu, p, window=window, max_rounds=max_rounds)
+            else:
+                res = scheme.sign_stream(km, mu, p, window=window, max_rounds=max_rounds)
+            return _signed(mesh, res)
 
     return run
 

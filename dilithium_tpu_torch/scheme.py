@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from dilithium_tpu_torch import trace
 from dilithium_tpu_torch.params import CRHBYTES, D, N, SEEDBYTES, TRBYTES, DilithiumParams
 from dilithium_tpu_torch.ops import keccak, ntt, pack, rounding, sampling
 from dilithium_tpu_torch.ops.reduce import add_mod, center, sub_mod, uncenter
@@ -190,23 +191,37 @@ def sign_expanded(ek: ExpandedKey, mu: torch.Tensor, p: DilithiumParams, attempt
     ct_out = torch.zeros((B, SEEDBYTES), dtype=torch.uint8, device=dev)
     z_out = torch.zeros((B, p.L, N), dtype=torch.int32, device=dev)
     h_out = torch.zeros((B, p.K, N), dtype=torch.uint8, device=dev)
-    rounds = 0
-    while rounds < max_rounds and not bool(done.all()):  # the round's one host sync
-        c_tilde, z, h, accept = _sign_attempt(a_hat, s1_hat, s2_hat, t0_hat, mu_r, rp_r,
-                                              kappa.unsqueeze(1) + steps * p.L, p)
-        first = torch.where(accept, steps, A).amin(dim=1)  # A where no attempt accepted
-        sel = first.clamp(max=A - 1)
-        newly = (first < A) & ~done
-        ct_out = torch.where(newly[:, None], c_tilde[rows, sel], ct_out)
-        z_out = torch.where(newly[:, None, None], z[rows, sel], z_out)
-        h_out = torch.where(newly[:, None, None], h[rows, sel], h_out)
-        attempts = torch.where(newly, attempts + first.to(torch.int32) + 1,
-                               torch.where(done, attempts, attempts + A))
-        kappa = torch.where(done | newly, kappa, kappa + A * p.L)
-        done = done | newly
-        rounds += 1
+    rounds, all_done = 0, B == 0
+    while rounds < max_rounds and not all_done:
+        with trace.span("scheme.round"):
+            c_tilde, z, h, accept = _sign_attempt(a_hat, s1_hat, s2_hat, t0_hat, mu_r, rp_r,
+                                                  kappa.unsqueeze(1) + steps * p.L, p)
+            first = torch.where(accept, steps, A).amin(dim=1)  # A where no attempt accepted
+            sel = first.clamp(max=A - 1)
+            newly = (first < A) & ~done
+            ct_out = torch.where(newly[:, None], c_tilde[rows, sel], ct_out)
+            z_out = torch.where(newly[:, None, None], z[rows, sel], z_out)
+            h_out = torch.where(newly[:, None, None], h[rows, sel], h_out)
+            attempts = torch.where(newly, attempts + first.to(torch.int32) + 1,
+                                   torch.where(done, attempts, attempts + A))
+            kappa = torch.where(done | newly, kappa, kappa + A * p.L)
+            done = done | newly
+            rounds += 1
+            with trace.span("scheme.sync"):
+                all_done = bool(done.all())  # the round's one host sync
     sig = pack.pack_sig(ct_out, z_out, h_out, p)
+    _count_rounds(rounds, B * A, attempts)
     return SignResult(sig.reshape(batch + (p.sig_bytes,)), attempts.reshape(batch), done.reshape(batch), rounds)
+
+
+def _count_rounds(rounds: int, slots: int, attempts: torch.Tensor) -> None:
+    """The loop's counters, while a profiler records: its rounds, the
+    attempt slots it ran (slots a round each round) and the attempts its
+    items needed (one reduction and one host read)."""
+    if trace.recording():
+        trace.count("scheme.rounds", rounds)
+        trace.count("scheme.slots", rounds * slots)
+        trace.count("scheme.attempts", int(attempts.sum()))
 
 
 AttemptFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
@@ -245,74 +260,74 @@ def _stream_loop(attempt_fn: AttemptFn, mu: torch.Tensor, rhoprime: torch.Tensor
     h_out = torch.zeros((Q + 1, p.K, N), dtype=torch.uint8, device=dev)
     att_out = torch.zeros(Q + 1, dtype=torch.int32, device=dev)
 
-    n_active = torch.tensor(W, device=dev)
     nxt = torch.tensor(W, device=dev)
     qidx = slots.clone()  # item -> queue index (Q = none)
     kappa = zeros_w.clone()  # item -> next kappa
-    rounds = 0
-    while rounds < max_rounds:
-        na = int(n_active)  # the round's one host sync
-        if na == 0:
-            break
-        steady = na == W
-        if steady:
-            q_s, kap_s, item, t = qidx, kappa, slots, zeros_w
-        else:
-            item, t = slots % na, slots // na
-            q_s, kap_s = qidx[item], kappa[item] + t * L
-        safe = q_s.clamp(max=Q - 1)
-        c_tilde, z, h, accept = attempt_fn(mu[safe], rhoprime[safe], kap_s.to(torch.int32), safe)
-        accept = accept & (q_s < Q)
+    rounds, na = 0, W
+    while rounds < max_rounds and na > 0:
+        with trace.span("scheme.round"):
+            steady = na == W
+            if steady:
+                q_s, kap_s, item, t = qidx, kappa, slots, zeros_w
+            else:
+                item, t = slots % na, slots // na
+                q_s, kap_s = qidx[item], kappa[item] + t * L
+            safe = q_s.clamp(max=Q - 1)
+            c_tilde, z, h, accept = attempt_fn(mu[safe], rhoprime[safe], kap_s.to(torch.int32), safe)
+            accept = accept & (q_s < Q)
 
-        # elastic commit: per item, its lowest accepting attempt index
-        win_t = torch.full((W,), BIG, device=dev).scatter_reduce(
-            0, item, torch.where(accept, t, BIG), reduce="amin")
-        committed = win_t < BIG
-        won_t = torch.where(committed, win_t, 0)
-        win_slot = (slots + na * won_t).clamp(max=W - 1)
-        tgt = torch.where(committed, qidx, Q)
-        att_val = kappa // L + won_t + 1
-        # survivors advance kappa by their slot count, move to the front,
-        # and fresh queue items fill the tail
-        n_slots = W // na + (slots < W % na).to(torch.int64)
-        alive = (slots < na) & ~committed
-        alive_i = alive.to(torch.int64)
-        n_surv = alive_i.sum()
-        pos = torch.where(alive, torch.cumsum(alive_i, 0) - alive_i, W)
-        qidx_new = torch.full((W + 1,), Q, device=dev).scatter(0, pos, qidx)[:W]
-        kappa_new = torch.zeros(W + 1, dtype=torch.int64, device=dev).scatter(
-            0, pos, kappa + n_slots * L)[:W]
-        fresh = nxt + slots - n_surv
-        take_fresh = (slots >= n_surv) & (fresh < Q)
-        qidx_new = torch.where(take_fresh, fresh, qidx_new)
-        kappa_new = torch.where(take_fresh, 0, kappa_new)
-        n_fresh = take_fresh.sum()
-        n_active_new, nxt_new = n_surv + n_fresh, nxt + n_fresh
+            # elastic commit: per item, its lowest accepting attempt index
+            win_t = torch.full((W,), BIG, device=dev).scatter_reduce(
+                0, item, torch.where(accept, t, BIG), reduce="amin")
+            committed = win_t < BIG
+            won_t = torch.where(committed, win_t, 0)
+            win_slot = (slots + na * won_t).clamp(max=W - 1)
+            tgt = torch.where(committed, qidx, Q)
+            att_val = kappa // L + won_t + 1
+            # survivors advance kappa by their slot count, move to the front,
+            # and fresh queue items fill the tail
+            n_slots = W // na + (slots < W % na).to(torch.int64)
+            alive = (slots < na) & ~committed
+            alive_i = alive.to(torch.int64)
+            n_surv = alive_i.sum()
+            pos = torch.where(alive, torch.cumsum(alive_i, 0) - alive_i, W)
+            qidx_new = torch.full((W + 1,), Q, device=dev).scatter(0, pos, qidx)[:W]
+            kappa_new = torch.zeros(W + 1, dtype=torch.int64, device=dev).scatter(
+                0, pos, kappa + n_slots * L)[:W]
+            fresh = nxt + slots - n_surv
+            take_fresh = (slots >= n_surv) & (fresh < Q)
+            qidx_new = torch.where(take_fresh, fresh, qidx_new)
+            kappa_new = torch.where(take_fresh, 0, kappa_new)
+            n_fresh = take_fresh.sum()
+            n_active_new, nxt_new = n_surv + n_fresh, nxt + n_fresh
 
-        if steady:
-            # steady commit (slot == item, refill in place), taken when the
-            # queue covers every refill this round
-            acc_i = accept.to(torch.int64)
-            n_acc = acc_i.sum()
-            use = nxt + n_acc <= Q
-            committed = torch.where(use, accept, committed)
-            win_slot = torch.where(use, slots, win_slot)
-            tgt = torch.where(use, torch.where(accept, qidx, Q), tgt)
-            att_val = torch.where(use, kappa // L + 1, att_val)
-            qidx_new = torch.where(use, torch.where(accept, nxt + torch.cumsum(acc_i, 0) - acc_i, qidx), qidx_new)
-            kappa_new = torch.where(use, torch.where(accept, 0, kappa + L), kappa_new)
-            n_active_new = torch.where(use, W, n_active_new)
-            nxt_new = torch.where(use, nxt + n_acc, nxt_new)
+            if steady:
+                # steady commit (slot == item, refill in place), taken when the
+                # queue covers every refill this round
+                acc_i = accept.to(torch.int64)
+                n_acc = acc_i.sum()
+                use = nxt + n_acc <= Q
+                committed = torch.where(use, accept, committed)
+                win_slot = torch.where(use, slots, win_slot)
+                tgt = torch.where(use, torch.where(accept, qidx, Q), tgt)
+                att_val = torch.where(use, kappa // L + 1, att_val)
+                qidx_new = torch.where(use, torch.where(accept, nxt + torch.cumsum(acc_i, 0) - acc_i, qidx), qidx_new)
+                kappa_new = torch.where(use, torch.where(accept, 0, kappa + L), kappa_new)
+                n_active_new = torch.where(use, W, n_active_new)
+                nxt_new = torch.where(use, nxt + n_acc, nxt_new)
 
-        ct_out.index_copy_(0, tgt, c_tilde[win_slot])
-        z_out.index_copy_(0, tgt, z[win_slot])
-        h_out.index_copy_(0, tgt, h[win_slot])
-        att_out.index_copy_(0, tgt, att_val.to(torch.int32))
-        n_active, nxt, qidx, kappa = n_active_new, nxt_new, qidx_new, kappa_new
-        rounds += 1
+            ct_out.index_copy_(0, tgt, c_tilde[win_slot])
+            z_out.index_copy_(0, tgt, z[win_slot])
+            h_out.index_copy_(0, tgt, h[win_slot])
+            att_out.index_copy_(0, tgt, att_val.to(torch.int32))
+            n_active, nxt, qidx, kappa = n_active_new, nxt_new, qidx_new, kappa_new
+            rounds += 1
+            with trace.span("scheme.sync"):
+                na = int(n_active)  # the round's one host sync
 
     sig = pack.pack_sig(ct_out[:Q], z_out[:Q], h_out[:Q], p)
     attempts = att_out[:Q]
+    _count_rounds(rounds, W, attempts)
     return SignResult(sig, attempts, attempts > 0, rounds)
 
 
@@ -387,10 +402,11 @@ def verify(pk: torch.Tensor, sig: torch.Tensor, mu: torch.Tensor, p: DilithiumPa
     uint8 [..., sig_bytes], mu uint8 [..., 64] -> bool [...]. Expands A for
     every lane; a one-key service uses `expand_pk` + `verify_expanded` or
     `mxu.verify_mxu`. ExpandA's ok is not checked, as in the JAX package."""
-    rho, t1 = pack.unpack_pk(pk, p)
-    a_hat, _ = sampling.expand_a(rho, p)
-    t1_hat = ntt.ntt(t1 << D)  # t1 * 2^13 <= q - 1 stays canonical
-    return _verify_core(a_hat, t1_hat, sig, mu, p)
+    with trace.span("scheme.verify"):
+        rho, t1 = pack.unpack_pk(pk, p)
+        a_hat, _ = sampling.expand_a(rho, p)
+        t1_hat = ntt.ntt(t1 << D)  # t1 * 2^13 <= q - 1 stays canonical
+        return _verify_core(a_hat, t1_hat, sig, mu, p)
 
 
 class ExpandedPk(NamedTuple):
@@ -416,7 +432,8 @@ def verify_expanded(epk: ExpandedPk, sig: torch.Tensor, mu: torch.Tensor,
     """Verify a batch sig uint8 [..., sig_bytes], mu uint8 [..., 64] under
     one unbatched ExpandedPk -> bool [...]. The key material is broadcast
     as a view, never copied per lane."""
-    batch = mu.shape[:-1]
-    a_hat = epk.a_hat.expand(batch + epk.a_hat.shape)
-    t1_hat = epk.t1_hat.expand(batch + epk.t1_hat.shape)
-    return _verify_core(a_hat, t1_hat, sig, mu, p)
+    with trace.span("scheme.verify"):
+        batch = mu.shape[:-1]
+        a_hat = epk.a_hat.expand(batch + epk.a_hat.shape)
+        t1_hat = epk.t1_hat.expand(batch + epk.t1_hat.shape)
+        return _verify_core(a_hat, t1_hat, sig, mu, p)

@@ -15,7 +15,7 @@ every side, so all run on the same inputs
 into their own output buffers: the outputs must be bit-equal, then each
 side's device-only time of one call (`bench_kernels.device_ms`, 20 calls
 a timing) is taken in turns, the order reversed every round, for ROUNDS
-rounds. Launches made here are not counted in `_kernels.LAUNCHES`.
+rounds. Launches made here are not counted in `_kernels.SHAPES`.
 Prints a table to stderr and one JSON line to stdout.
 """
 

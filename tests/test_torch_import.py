@@ -53,7 +53,7 @@ def _probe(code: str) -> subprocess.CompletedProcess:
 def test_package_imports_without_jax_triton_or_nvcc():
     proc = _probe(_PROBE)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    for mod in ("api", "__main__", "mxu", "scheme", "convert", "_kernels", "ops.keccak", "ops.ntt",
+    for mod in ("api", "__main__", "mxu", "scheme", "trace", "convert", "_kernels", "ops.keccak", "ops.ntt",
                 "parallel", "parallel.mesh", "parallel.service", "tools.run_multihost", "tools.kat_replay",
                 "utils", "utils.kat",
                 "ops.sampling", "ops.pack", "ops.rounding", "ops.reduce", "params",
@@ -75,7 +75,7 @@ if "%s" == "mxu.sign_stream_mxu":
     res = mxu.sign_stream_mxu(mxu.build_operators(kp.sk, p), torch.zeros((2, 64), dtype=torch.uint8), p, window=2)
     assert bool(res.ok.all())
 assert not started and _kernels.library.cache_info().currsize == 0
-assert all(v == 0 for v in _kernels.LAUNCHES.values())
+assert all(v == 0 for v in _kernels.launches().values())
 print("ok")
 """ % path
     proc = _probe(code)
@@ -93,7 +93,7 @@ if not torch.cuda.is_available():  # without --cpu the bench needs a card
     assert bench_kernels.main(["256", "8"]) == 1
 assert bench_kernels.main(["256", "8", "--xof-batch", "64", "--ball-batch", "64", "--reps", "1", "--cpu"]) == 0
 assert not started and _kernels.library.cache_info().currsize == 0
-assert all(v == 0 for v in _kernels.LAUNCHES.values())
+assert all(v == 0 for v in _kernels.launches().values())
 """
     proc = _probe(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
