@@ -78,7 +78,11 @@ line):
      signatures accepted by `oracle.verify` and unlike the deterministic
      ones; `api.verify` and `Verifier` ("mxu" and "batch") on valid rows,
      every corruption class of `tools/verify_cases.py` and a short
-     signature, equal to `oracle.verify`; each service again from an .npz
+     signature, equal to `oracle.verify`; each `Verifier` again over
+     batches of 8, 3, 12 and 8 pairs (its staging buffers grown, reused
+     in part and grown again), then shared by two threads with batches
+     of their own, each batch with a corrupted and a short row, every
+     call equal to `oracle.verify`; each service again from an .npz
      cache it wrote; then the CLI (`python -m dilithium_tpu_torch --level
      3`) in subprocesses on the card, exit codes 0, 0, 0 and 1 after a
      flipped byte. 8b, full width at Dilithium-3, the JAX package's bench
@@ -151,6 +155,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -1069,6 +1074,33 @@ def gate_level(level: int, dev) -> str:
                       ("Verifier batch", verifiers["batch"].verify(pairs))):
         if got != expect:
             raise AssertionError(f"phase 8a level {level}: {name} differs from oracle.verify")
+    # one verifier's staging buffers grown, reused in part and grown again
+    # (batches of 8, 3, 12 and 8 pairs, each with a corrupted and the short
+    # row), then shared by two threads with batches of their own
+    batches = []
+    for k, (n, off) in enumerate(((8, 0), (3, 10), (12, 20), (8, 40))):
+        idx = [N_GATE + k % len(names)] + list(range(off, off + n - 2))
+        idx.insert(n // 2, len(pairs) - 1)
+        batches.append(([pairs[i] for i in idx], [expect[i] for i in idx]))
+    for mode, verifier in verifiers.items():
+        answers = [verifier.verify(b) for b, _ in batches]
+        if answers != [want for _, want in batches]:
+            raise AssertionError(f"phase 8a level {level}: Verifier {mode} over batches of 8, 3, 12 and 8 "
+                                 f"differs from oracle.verify")
+        start, wrong = threading.Barrier(2), []
+
+        def run(b, want):
+            start.wait()
+            wrong.extend(got for got in (verifier.verify(b) for _ in range(6)) if got != want)
+
+        threads = [threading.Thread(target=run, args=batches[i]) for i in (2, 3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if wrong or answers[0] != batches[0][1]:
+            raise AssertionError(f"phase 8a level {level}: Verifier {mode} shared by two threads differs "
+                                 f"from oracle.verify, or changed an earlier answer")
 
     with tempfile.TemporaryDirectory() as d:
         for mode in ("mxu", "batch"):
@@ -1084,7 +1116,8 @@ def gate_level(level: int, dev) -> str:
     return (f"level {level}: keygen of {N_GATE_KEYS} keys, {N_GATE} messages of 0-300 bytes through api.sign, "
             f"Signer mxu/batch and MultiSigner ({N_GATE_KEYS} keys) == oracle.sign (bytes and attempts "
             f"beneath), randomized accepted and new; api.verify, Verifier mxu/batch == oracle.verify on "
-            f"{N_GATE} valid, {len(names)} corrupted and 1 short row; caches written and reloaded")
+            f"{N_GATE} valid, {len(names)} corrupted and 1 short row; Verifier mxu/batch over batches of 8, 3, "
+            f"12 and 8 and shared by two threads == oracle.verify; caches written and reloaded")
 
 
 def cli_gate() -> str:

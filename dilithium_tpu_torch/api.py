@@ -27,6 +27,7 @@ import hashlib
 import json
 import os
 import subprocess
+import threading
 import warnings
 from typing import Optional, Sequence, Tuple, Union
 
@@ -57,12 +58,20 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(device)  # a writable copy: a may view bytes
 
 
-def _rows(t: torch.Tensor, row=bytes) -> list:
-    """t's rows as bytes (or its elements as bool, row=bool) on the host."""
+def _rows(t: torch.Tensor) -> list:
+    """t's rows as bytes on the host."""
     with trace.span("api.d2h"):  # waits for the device, then the pageable copy
         a = t.cpu().numpy()
     with trace.span("api.rows"):
-        return [row(r) for r in a]
+        return [bytes(r) for r in a]
+
+
+def _bools(t: torch.Tensor) -> list:
+    """t's elements as a list of bool on the host, in one step."""
+    with trace.span("api.d2h"):
+        a = t.cpu()
+    with trace.span("api.rows"):
+        return a.tolist()
 
 
 def _tr_of_sk(sk_b: bytes) -> bytes:
@@ -236,15 +245,26 @@ def sign(level: int, sk: Bytes, messages: Sequence[Bytes], randomized: bool = Fa
         return _signatures(scheme.sign(sk_t, mus, p, rhoprime=rp))
 
 
-def _coerce_pairs(p: DilithiumParams, tr: bytes, message_sig_pairs) -> Tuple[np.ndarray, np.ndarray]:
-    with trace.span("api.coerce"):
-        sigs = []
-        for _, s in message_sig_pairs:
-            s = bytes(s)
-            if len(s) != p.sig_bytes:
-                s = b"\x01" * p.sig_bytes  # a wrong length never verifies: junk bytes that fail
-            sigs.append(np.frombuffer(s, dtype=np.uint8))
-        return compute_mu_many(tr, [m for m, _ in message_sig_pairs]), np.stack(sigs)
+def _sig_row(s: Bytes, sig_bytes: int):
+    """s as sig_bytes bytes, its length counted in bytes whatever its item
+    size: a byte view of s, or 0x01 bytes where the length is wrong."""
+    v = memoryview(s)
+    if v.nbytes != sig_bytes:
+        return b"\x01" * sig_bytes  # a wrong length never verifies: junk bytes that fail
+    return v.cast("B") if v.c_contiguous else v.tobytes()
+
+
+def _fill_sigs(out: np.ndarray, sig_bytes: int, message_sig_pairs) -> None:
+    """Write the pairs' signatures into the first rows of out (uint8,
+    C-contiguous, sig_bytes a row), each once, straight from the caller's
+    object."""
+    sigs = [s for _, s in message_sig_pairs]
+    # one pass over types and lengths, so that the usual call takes no branch a row
+    if not (set(map(type, sigs)) <= {bytes, bytearray} and set(map(len, sigs)) == {sig_bytes}):
+        sigs = [_sig_row(s, sig_bytes) for s in sigs]
+    flat = memoryview(out).cast("B")
+    for i, s in enumerate(sigs):
+        flat[i * sig_bytes:(i + 1) * sig_bytes] = s
 
 
 def _pk_bytes(p: DilithiumParams, pk: Bytes) -> bytes:
@@ -263,9 +283,14 @@ def verify(level: int, pk: Bytes, message_sig_pairs: Sequence[Tuple[Bytes, Bytes
     if not message_sig_pairs:
         return []
     with trace.span("api.verify"):
-        mus, sigs = _coerce_pairs(p, hashlib.shake_256(pk_b).digest(TRBYTES), message_sig_pairs)
+        with trace.span("api.stage"):  # one call: a fresh buffer, not pinned
+            sigs = np.empty((len(message_sig_pairs), p.sig_bytes), dtype=np.uint8)
+            _fill_sigs(sigs, p.sig_bytes, message_sig_pairs)
+        mus = compute_mu_many(hashlib.shake_256(pk_b).digest(TRBYTES), [m for m, _ in message_sig_pairs])
         epk = scheme.expand_pk(_tensor(np.frombuffer(pk_b, dtype=np.uint8), device), p)
-        return _rows(scheme.verify_expanded(epk, _tensor(sigs, device), _tensor(mus, device), p), bool)
+        with trace.span("api.h2d"):
+            sigs_t, mus_t = torch.from_numpy(sigs).to(device), torch.from_numpy(mus).to(device)
+        return _bools(scheme.verify_expanded(epk, sigs_t, mus_t, p))
 
 
 class Signer:
@@ -358,6 +383,12 @@ class Verifier:
       "auto"  - "mxu" on a CUDA device, "batch" on the CPU.
 
     cache_path: an .npz file that keeps the expansion (see `Signer`).
+
+    A call's signatures and mu rows reach the device through host buffers
+    the verifier keeps (pinned on a CUDA device): allocated on the first
+    call, grown only for a call of more pairs than they hold, never shrunk.
+    Threads may share a verifier: its calls take turns, one whole call at
+    a time, since each fills, copies and reads the same buffers.
     """
 
     def __init__(self, level: int, pk: Bytes, mode: str = "auto",
@@ -376,16 +407,52 @@ class Verifier:
         else:
             self.expanded = _cached(cache_path, _expansion_meta("torch.ExpandedPk", level, pk_b),
                                     self.device, lambda: scheme.expand_pk(pk_t, self.p))
+        self._sigs = torch.empty((0, self.p.sig_bytes), dtype=torch.uint8)
+        self._mus = torch.empty((0, CRHBYTES), dtype=torch.uint8)
+        self._copied = torch.cuda.Event() if self.device.type == "cuda" else None
+        self._lock = threading.Lock()
+
+    def _stage(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The first n rows of the staging buffers, sigs and mus, once the
+        last call's copies out of them are done."""
+        if self._copied is not None:
+            # A non_blocking copy from pinned memory returns before the
+            # device has read the rows, and nothing else says the last
+            # call's copies are done (it may have raised, or its verdicts
+            # come from another stream): wait for them before a rewrite.
+            self._copied.synchronize()
+        if n > len(self._sigs):
+            pin = self.device.type == "cuda"
+            self._sigs = torch.empty((n, self.p.sig_bytes), dtype=torch.uint8, pin_memory=pin)
+            self._mus = torch.empty((n, CRHBYTES), dtype=torch.uint8, pin_memory=pin)
+            trace.count("api.stage_allocs")
+        trace.count("api.staged_rows", n)
+        return self._sigs[:n], self._mus[:n]
+
+    def _to_device(self, rows: torch.Tensor) -> torch.Tensor:
+        """A non_blocking copy of staged rows; the event marks its end."""
+        with trace.span("api.h2d"):
+            t = rows.to(self.device, non_blocking=True)
+            if self._copied is not None:
+                self._copied.record(torch.cuda.current_stream(self.device))
+            return t
 
     def verify(self, message_sig_pairs: Sequence[Tuple[Bytes, Bytes]]) -> list:
         """Verify (message, signature) pairs -> bools."""
         if not message_sig_pairs:
             return []
-        with trace.span("api.verify"):
-            mus, sigs = _coerce_pairs(self.p, self.tr, message_sig_pairs)
-            sigs_t, mus_t = _tensor(sigs, self.device), _tensor(mus, self.device)
+        # held until the verdicts are on the host: on the CPU the device
+        # tensors are the buffers themselves, and mu is hashed (without the
+        # GIL) between the two copies
+        with self._lock, trace.span("api.verify"):
+            with trace.span("api.stage"):
+                sigs, mus = self._stage(len(message_sig_pairs))
+                _fill_sigs(sigs.numpy(), self.p.sig_bytes, message_sig_pairs)
+            sigs_t = self._to_device(sigs)  # on its way while mu is hashed
+            mus.numpy()[...] = compute_mu_many(self.tr, [m for m, _ in message_sig_pairs])
+            mus_t = self._to_device(mus)
             if self.mode == "mxu":
                 ok = self.verifier(sigs_t, mus_t)
             else:
                 ok = scheme.verify_expanded(self.expanded, sigs_t, mus_t, self.p)
-            return _rows(ok, bool)
+            return _bools(ok)

@@ -72,14 +72,15 @@ def test_on_records_spans_and_counters(keys):
         assert verifier.verify(pairs) == want_ok == [True, False]
     t = trace.totals()
     spans, counters = t["spans"], t["counters"]
-    names = {"api.sign", "api.verify", "api.mu", "api.coerce", "api.h2d", "api.d2h", "api.rows",
+    names = {"api.sign", "api.verify", "api.mu", "api.stage", "api.h2d", "api.d2h", "api.rows",
              "mxu.sign_stream", "mxu.verify", "scheme.round", "scheme.sync"}
     assert set(spans) == names
     assert not any("(" in n for n in set(spans) | set(counters))
     assert spans["api.sign"]["n"] == spans["api.verify"]["n"] == spans["mxu.sign_stream"]["n"] == 1
     assert spans["scheme.round"]["n"] == spans["scheme.sync"]["n"] == res.rounds
+    # the verifier's staging buffers were allocated by its untraced call
     assert counters == {"scheme.rounds": res.rounds, "scheme.slots": res.rounds * len(MSGS),
-                        "scheme.attempts": int(res.attempts.sum())}
+                        "scheme.attempts": int(res.attempts.sum()), "api.staged_rows": len(pairs)}
     for s in spans.values():
         assert 0 <= s["self_ms"] <= s["total_ms"]
     assert spans["api.sign"]["total_ms"] >= spans["mxu.sign_stream"]["total_ms"] >= spans["scheme.round"]["total_ms"]
