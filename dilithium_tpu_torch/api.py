@@ -362,11 +362,15 @@ class MultiSigner:
         randomized as in `sign`."""
         if not key_message_pairs:
             return []
-        idx = np.asarray([i for i, _ in key_message_pairs], dtype=np.int64)
-        if idx.min() < 0 or idx.max() >= len(self.trs):
-            raise IndexError(f"key index out of range 0..{len(self.trs) - 1}")
         with trace.span("api.sign"):
-            mus = compute_mu_many([self.trs[i] for i in idx], [m for _, m in key_message_pairs])
+            with trace.span("api.keys"):
+                idx = np.asarray([i for i, _ in key_message_pairs], dtype=np.int64)
+                if idx.min() < 0 or idx.max() >= len(self.trs):
+                    raise IndexError(f"key index out of range 0..{len(self.trs) - 1}")
+                trs = [self.trs[i] for i in idx]
+                if trace.recording():
+                    trace.count("api.distinct_keys", np.count_nonzero(np.bincount(idx)))
+            mus = compute_mu_many(trs, [m for _, m in key_message_pairs])
             rp = _fresh_rhoprime(len(idx), self.device) if randomized else None
             res = scheme.sign_stream_keys(self.expanded, _tensor(idx, self.device), _tensor(mus, self.device),
                                           self.p, window=self.window, rhoprime=rp)

@@ -358,18 +358,20 @@ def sign_stream_keys(eks: ExpandedKey, key_idx: torch.Tensor, mu: torch.Tensor, 
     n = mu.shape[0]
     if tuple(key_idx.shape) != (n,):
         raise ValueError(f"key_idx must have shape ({n},); got {tuple(key_idx.shape)}")
-    key_idx = key_idx.to(torch.int64)
-    n_keys = eks.key.shape[0]
-    if n and not bool(((key_idx >= 0) & (key_idx < n_keys)).all()):
-        raise IndexError(f"key index out of range 0..{n_keys - 1}")
-    rhoprime = _rhoprime(eks.key[key_idx], mu, rhoprime)
+    with trace.span("scheme.sign_stream_keys"):
+        key_idx = key_idx.to(torch.int64)
+        n_keys = eks.key.shape[0]
+        if n and not bool(((key_idx >= 0) & (key_idx < n_keys)).all()):
+            raise IndexError(f"key index out of range 0..{n_keys - 1}")
+        rhoprime = _rhoprime(eks.key[key_idx], mu, rhoprime)
 
-    def attempt(mu_s, rp_s, kappa_s, q_s):
-        k = key_idx[q_s]
-        return _sign_attempt(eks.a_hat[k], eks.s1_hat[k], eks.s2_hat[k], eks.t0_hat[k],
-                             mu_s, rp_s, kappa_s, p)
+        def attempt(mu_s, rp_s, kappa_s, q_s):
+            with trace.span("scheme.gather"):  # each slot's own key material
+                k = key_idx[q_s]
+                a_hat, s1_hat, s2_hat, t0_hat = eks.a_hat[k], eks.s1_hat[k], eks.s2_hat[k], eks.t0_hat[k]
+            return _sign_attempt(a_hat, s1_hat, s2_hat, t0_hat, mu_s, rp_s, kappa_s, p)
 
-    return _stream_loop(attempt, mu, rhoprime, p, min(window, n), max_rounds)
+        return _stream_loop(attempt, mu, rhoprime, p, min(window, n), max_rounds)
 
 
 def _verify_tail(w, h, c_tilde, mu, pre_ok, p: DilithiumParams) -> torch.Tensor:
