@@ -298,7 +298,9 @@ class Signer:
 
     mode:
       "mxu"   - dense per-key int8 operators and the elastic stream loop
-                (`mxu.MxuSigner`, window W);
+                (`mxu.MxuSigner`) over min(window, messages) attempt
+                slots; window None is the level's default
+                (`scheme.default_window(p)`);
       "batch" - the lockstep `scheme.sign_expanded` over the key's
                 `ExpandedKey`;
       "auto"  - "mxu" on a CUDA device, "batch" on the CPU.
@@ -308,7 +310,7 @@ class Signer:
     being computed; otherwise it is computed and written there.
     """
 
-    def __init__(self, level: int, sk: Bytes, mode: str = "auto", window: int = 768,
+    def __init__(self, level: int, sk: Bytes, mode: str = "auto", window: Optional[int] = None,
                  cache_path: Optional[str] = None, device="cuda"):
         self.p = get_params(level)
         self.level = level
@@ -346,9 +348,11 @@ class MultiSigner:
     """A signing service for many keys in one elastic window: the keys'
     expansions as one `ExpandedKey` on a key axis (one batched
     `expand_sk`), and every sign call a mixed-key queue through
-    `scheme.sign_stream_keys`, whose slots gather their own key's rows."""
+    `scheme.sign_stream_keys`, whose slots gather their own key's rows,
+    over min(window, pairs) attempt slots; window None is the level's
+    default (`scheme.default_window(p)`)."""
 
-    def __init__(self, level: int, sks: Sequence[Bytes], window: int = 768, device="cuda"):
+    def __init__(self, level: int, sks: Sequence[Bytes], window: Optional[int] = None, device="cuda"):
         self.p = get_params(level)
         self.level = level
         arr = _as_rows(sks, self.p.sk_bytes, "sk")

@@ -16,7 +16,8 @@ Environment (default in brackets):
   DILITHIUM_BENCH_LEVEL [3]; DILITHIUM_BENCH_BATCH [16384] (queue, or
   signatures in verify mode); DILITHIUM_BENCH_ITERS [21] (timed calls at
   least, in 3 blocks); DILITHIUM_BENCH_MODE [mxu]; DILITHIUM_BENCH_WINDOW
-  [1536 at level 2, 768 at levels 3 and 5]; DILITHIUM_BENCH_NKEYS [256]
+  [the level's `scheme.default_window`; batch mode runs no window];
+  DILITHIUM_BENCH_NKEYS [256]
   (keys mode); DILITHIUM_BENCH_MSGLEN [200] (serve mode);
   DILITHIUM_BENCH_PROFILE [unset]: a directory for a torch.profiler chrome
   trace of one steady call; DILITHIUM_BENCH_DEVICE [cuda]: "cpu" runs the
@@ -70,7 +71,6 @@ from dilithium_tpu_torch import _kernels, api, mxu, oracle, scheme
 from dilithium_tpu_torch.params import get_params
 
 MODES = ("mxu", "serve", "keys", "stream", "batch", "verify")
-WINDOWS = {2: 1536, 3: 768, 5: 768}
 BASELINE_SIGNS_PER_SEC = 2.0e4
 MAX_ROUNDS = 8192
 N_GATE = 64
@@ -383,7 +383,7 @@ def main() -> int:
     log(f"device: {card['device']} ({dev}), power limit {card['power_limit_w']} W")
     batch = int(env.get("DILITHIUM_BENCH_BATCH", "16384"))
     iters = int(env.get("DILITHIUM_BENCH_ITERS", "21"))
-    window = int(env.get("DILITHIUM_BENCH_WINDOW", WINDOWS[level]))
+    window = int(env.get("DILITHIUM_BENCH_WINDOW", scheme.default_window(get_params(level))))
     nkeys = int(env.get("DILITHIUM_BENCH_NKEYS", "256"))
     msg_len = int(env.get("DILITHIUM_BENCH_MSGLEN", "200"))
     try:

@@ -26,7 +26,7 @@ rank, N = 1, as the root script does on one chip. --device (default
 DILITHIUM_BENCH_DEVICE, else cuda) cpu runs gloo and the plain versions;
 its line names the CPU. Environment: DILITHIUM_BENCH_LEVEL [3],
 DILITHIUM_BENCH_BATCH [16384] (per_dev), DILITHIUM_BENCH_ITERS [10],
-DILITHIUM_BENCH_WINDOW [768].
+DILITHIUM_BENCH_WINDOW [the level's `scheme.default_window`].
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ MAX_ROUNDS = 8192
 TARGET = 0.95  # BASELINE.md's north star: 95% of linear
 
 
-def measure(mesh, level: int, per_dev: int, iters: int, window: int) -> dict:
+def measure(mesh, level: int, per_dev: int, iters: int, window: int | None) -> dict:
     """Steps (a) and (b) of the module docstring on this rank -> the
     line's numbers (the same on every rank)."""
     dev, rank, n = mesh.device, mesh.rank, mesh.world_size
@@ -101,7 +101,7 @@ def main(argv=None) -> int:
     level = int(env.get("DILITHIUM_BENCH_LEVEL", "3"))
     per_dev = int(env.get("DILITHIUM_BENCH_BATCH", "16384"))
     iters = int(env.get("DILITHIUM_BENCH_ITERS", "10"))
-    window = int(env.get("DILITHIUM_BENCH_WINDOW", "768"))
+    window = int(env["DILITHIUM_BENCH_WINDOW"]) if "DILITHIUM_BENCH_WINDOW" in env else None
     head = {"metric": f"dilithium{level}_sign_scaling_efficiency"}
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -188,10 +188,11 @@ def _sign_attempt_mxu(ops: KeyOperators, mu: torch.Tensor, rhoprime: torch.Tenso
 
 
 def sign_stream_mxu(ops: KeyOperators, mu: torch.Tensor, p: DilithiumParams,
-                    window: int = 768, max_rounds: int = 8192,
+                    window: int | None = None, max_rounds: int = 8192,
                     rhoprime: torch.Tensor | None = None) -> scheme.SignResult:
     """Sign a queue mu uint8 [Q, 64] under one key with the elastic stream
-    loop over W = min(window, Q) attempt slots. Deterministic by default
+    loop over W = min(window, Q) attempt slots; window None is the level's
+    `scheme.default_window(p)`. Deterministic by default
     (rhoprime = SHAKE256(key || mu, 64)); pass uniformly random rhoprime
     uint8 [Q, 64] for randomized signing."""
     Q_ = mu.shape[0]
@@ -202,15 +203,17 @@ def sign_stream_mxu(ops: KeyOperators, mu: torch.Tensor, p: DilithiumParams,
 
     with trace.span("mxu.sign_stream"):
         rhoprime = scheme._rhoprime(ops.key.expand(Q_, ops.key.shape[-1]), mu, rhoprime)
-        return scheme._stream_loop(attempt, mu, rhoprime, p, min(window, Q_), max_rounds)
+        return scheme._stream_loop(attempt, mu, rhoprime, p, scheme._slots(window, p, Q_), max_rounds)
 
 
 class MxuSigner(nn.Module):
     """A one-key signing service: the key's operators as buffers, and
-    forward(mu, rhoprime=None) -> SignResult. Move it with `.to(device)`."""
+    forward(mu, rhoprime=None) -> SignResult over min(window, Q) attempt
+    slots; window None is the level's `scheme.default_window(p)`.
+    Move it with `.to(device)`."""
 
     def __init__(self, ops: KeyOperators, p: DilithiumParams,
-                 window: int = 768, max_rounds: int = 8192):
+                 window: int | None = None, max_rounds: int = 8192):
         super().__init__()
         self.p, self.window, self.max_rounds = p, window, max_rounds
         self.register_buffer("wy_cat", gemm_layout(ops.wy_cat))

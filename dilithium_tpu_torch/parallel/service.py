@@ -91,12 +91,14 @@ def sharded_sign(mesh: Mesh, p: DilithiumParams, attempts_per_round: int = 4,
     return run
 
 
-def sharded_sign_stream(mesh: Mesh, p: DilithiumParams, window: int = 768,
+def sharded_sign_stream(mesh: Mesh, p: DilithiumParams, window: int | None = None,
                         max_rounds: int = 8192, use_mxu: bool = True):
     """One-key signing service, the serving path: fn(key_material, mu
     uint8 [Q_local, 64]) -> ShardedSignResult. The key material is the
     key's `mxu.KeyOperators` (use_mxu: `mxu.sign_stream_mxu`) or its
-    unbatched `scheme.ExpandedKey` (`scheme.sign_stream`)."""
+    unbatched `scheme.ExpandedKey` (`scheme.sign_stream`). Each rank runs
+    min(window, Q_local) attempt slots; window None is the level's
+    default (`scheme.default_window`)."""
 
     def run(km, mu: torch.Tensor) -> ShardedSignResult:
         _on_mesh(mesh, mu)
@@ -110,12 +112,12 @@ def sharded_sign_stream(mesh: Mesh, p: DilithiumParams, window: int = 768,
     return run
 
 
-def sharded_sign_stream_keys(mesh: Mesh, p: DilithiumParams, window: int = 768,
+def sharded_sign_stream_keys(mesh: Mesh, p: DilithiumParams, window: int | None = None,
                              max_rounds: int = 8192):
     """Independent-keys signing service: fn(eks, key_idx int [Q_local],
     mu uint8 [Q_local, 64]) -> ShardedSignResult. eks is the batched
     `scheme.ExpandedKey` of every key (on every rank); key_idx and mu are
-    this rank's shard of the queue."""
+    this rank's shard of the queue. window as in `sharded_sign_stream`."""
 
     def run(eks: scheme.ExpandedKey, key_idx: torch.Tensor, mu: torch.Tensor) -> ShardedSignResult:
         _on_mesh(mesh, key_idx, mu)

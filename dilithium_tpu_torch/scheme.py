@@ -6,7 +6,8 @@ key (`ExpandedKey`, `expand_sk`) and one signing attempt over it
 lane tries `attempts_per_round` kappas a round until all have accepted);
 the elastic attempt-slot loop `_stream_loop` and its NTT-form signers for
 one key (`sign_stream`) and for a queue that mixes keys
-(`sign_stream_keys`), which `mxu.sign_stream_mxu` drives too; and verify,
+(`sign_stream_keys`), which `mxu.sign_stream_mxu` drives too, with the
+stream signers' default windows (`default_window`); and verify,
 per lane (`verify`) or under one expanded public key (`expand_pk` +
 `verify_expanded`), with the epilogue `_verify_tail` that the
 dense-operator verifier (`mxu.verify_mxu`) shares.
@@ -224,6 +225,27 @@ def _count_rounds(rounds: int, slots: int, attempts: torch.Tensor) -> None:
         trace.count("scheme.attempts", int(attempts.sum()))
 
 
+# Attempt slots a round where the caller names no window, by level. The
+# round's host dispatch hardly depends on W, so a wider window runs fewer
+# rounds until the device's work a round outlasts it. Set from a sweep of
+# 16384-message queues on one H100 (PERF.md, section 6), in which the
+# dense, the one-key NTT-form and the keyed NTT-form attempts were
+# fastest at the same W at each level.
+DEFAULT_WINDOWS = {2: 8192, 3: 8192, 5: 6144}
+
+
+def default_window(p: DilithiumParams) -> int:
+    """The attempt slots a round that every stream signer runs at p's
+    level when it is given window=None (`DEFAULT_WINDOWS`). A call runs
+    min(window, Q) slots."""
+    return DEFAULT_WINDOWS[p.level]
+
+
+def _slots(window: int | None, p: DilithiumParams, n: int) -> int:
+    """W = min(window, n), window None taking `default_window`."""
+    return min(default_window(p) if window is None else window, n)
+
+
 AttemptFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -331,12 +353,13 @@ def _stream_loop(attempt_fn: AttemptFn, mu: torch.Tensor, rhoprime: torch.Tensor
     return SignResult(sig, attempts, attempts > 0, rounds)
 
 
-def sign_stream(ek: ExpandedKey, mu: torch.Tensor, p: DilithiumParams, window: int = 768,
+def sign_stream(ek: ExpandedKey, mu: torch.Tensor, p: DilithiumParams, window: int | None = None,
                 max_rounds: int = 4096, rhoprime: torch.Tensor | None = None) -> SignResult:
     """Sign a queue mu uint8 [Q, 64] under one unbatched ExpandedKey with
     the elastic stream loop over W = min(window, Q) attempt slots, each
-    running `_sign_attempt`. Deterministic by default; pass uniformly
-    random rhoprime uint8 [Q, 64] for randomized signing."""
+    running `_sign_attempt`; window None is the level's
+    `default_window(p)`. Deterministic by default; pass
+    uniformly random rhoprime uint8 [Q, 64] for randomized signing."""
     n = mu.shape[0]
     rhoprime = _rhoprime(ek.key.expand(n, SEEDBYTES), mu, rhoprime)
 
@@ -344,17 +367,18 @@ def sign_stream(ek: ExpandedKey, mu: torch.Tensor, p: DilithiumParams, window: i
         del q_s  # one key: the material is slot-invariant
         return _sign_attempt(ek.a_hat, ek.s1_hat, ek.s2_hat, ek.t0_hat, mu_s, rp_s, kappa_s, p)
 
-    return _stream_loop(attempt, mu, rhoprime, p, min(window, n), max_rounds)
+    return _stream_loop(attempt, mu, rhoprime, p, _slots(window, p, n), max_rounds)
 
 
 def sign_stream_keys(eks: ExpandedKey, key_idx: torch.Tensor, mu: torch.Tensor, p: DilithiumParams,
-                     window: int = 768, max_rounds: int = 8192,
+                     window: int | None = None, max_rounds: int = 8192,
                      rhoprime: torch.Tensor | None = None) -> SignResult:
     """Sign a queue mu uint8 [Q, 64] that mixes keys: eks holds the keys
     on a leading axis [Nk, ...] (`expand_sk` of a batched sk) and key_idx
     int [Q] names each message's row. Each attempt slot gathers its
-    message's key material, so keys mix freely in one elastic window and
-    every message's bytes and attempts equal `sign`'s under its key."""
+    message's key material, so keys mix freely in one elastic window of
+    W = min(window, Q) slots (window None: `default_window(p)`)
+    and every message's bytes and attempts equal `sign`'s under its key."""
     n = mu.shape[0]
     if tuple(key_idx.shape) != (n,):
         raise ValueError(f"key_idx must have shape ({n},); got {tuple(key_idx.shape)}")
@@ -371,7 +395,7 @@ def sign_stream_keys(eks: ExpandedKey, key_idx: torch.Tensor, mu: torch.Tensor, 
                 a_hat, s1_hat, s2_hat, t0_hat = eks.a_hat[k], eks.s1_hat[k], eks.s2_hat[k], eks.t0_hat[k]
             return _sign_attempt(a_hat, s1_hat, s2_hat, t0_hat, mu_s, rp_s, kappa_s, p)
 
-        return _stream_loop(attempt, mu, rhoprime, p, min(window, n), max_rounds)
+        return _stream_loop(attempt, mu, rhoprime, p, _slots(window, p, n), max_rounds)
 
 
 def _verify_tail(w, h, c_tilde, mu, pre_ok, p: DilithiumParams) -> torch.Tensor:

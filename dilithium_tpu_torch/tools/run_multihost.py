@@ -11,7 +11,7 @@ One process per card on each host, by hand:
 
   python -m dilithium_tpu_torch.tools.run_multihost \\
       --coordinator=host0:29500 --num-processes=4 --process-id=$i \\
-      [--level 3] [--global-batch 16384] [--window 768] \\
+      [--level 3] [--global-batch 16384] [--window W] \\
       [--signer mxu|stream|lockstep|keys] [--verify] [--out shard_sigs.npy]
 
 or through torchrun, which supplies the process group's address, size
@@ -52,7 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--level", type=int, default=3, choices=(2, 3, 5))
     ap.add_argument("--global-batch", type=int, default=16384,
                     help="total message queue size across all processes")
-    ap.add_argument("--window", type=int, default=768)
+    ap.add_argument("--window", type=int, default=None,
+                    help="attempt slots a round (default: the level's scheme.default_window)")
     ap.add_argument("--max-rounds", type=int, default=8192)
     ap.add_argument("--signer", default="mxu", choices=("mxu", "stream", "lockstep", "keys"),
                     help="mxu: dense-operator elastic signer; stream: generic-NTT elastic signer; "

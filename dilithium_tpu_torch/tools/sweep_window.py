@@ -11,8 +11,9 @@ stderr.
 
     python -m dilithium_tpu_torch.tools.sweep_window [level] [windows...]
 
-Defaults: level 3, windows 512 768 1024 1536. Exits 1 when a run fails
-(its JSON line has no value) or exits non-zero.
+Defaults: level 3; windows 768 1536 2048 3072 4096 6144 8192, the widths
+`scheme.DEFAULT_WINDOWS` was chosen from, and the level's default. Exits
+1 when a run fails (its JSON line has no value) or exits non-zero.
 """
 
 from __future__ import annotations
@@ -22,14 +23,17 @@ import os
 import subprocess
 import sys
 
-WINDOWS = (512, 768, 1024, 1536)
+from dilithium_tpu_torch import scheme
+from dilithium_tpu_torch.params import get_params
+
+WINDOWS = (768, 1536, 2048, 3072, 4096, 6144, 8192)
 TIMEOUT_S = 2400
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     level = int(argv[0]) if argv else 3
-    windows = [int(w) for w in argv[1:]] or list(WINDOWS)
+    windows = [int(w) for w in argv[1:]] or sorted({*WINDOWS, scheme.default_window(get_params(level))})
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     values, failed = {}, []
     for w in windows:

@@ -4,9 +4,10 @@ and the lockstep (`sign`, `sign_expanded`) and stream (`sign_stream`,
 `sign_stream_keys`) signers against the C++ oracle at levels 2, 3 and 5,
 in bytes and attempts.
 
-Two tests: the JAX comparison (one jitted `expand_sk`, one eager
+Three tests: the JAX comparison (one jitted `expand_sk`, one eager
 `_sign_attempt` at two lanes; the JAX side is keyed from oracle bytes so
-that its keygen is not compiled) and the signers against the oracle."""
+that its keygen is not compiled), the signers against the oracle, and the
+stream signers' default window (the loop stubbed, no signing)."""
 
 import hashlib
 
@@ -17,7 +18,7 @@ import torch
 
 from dilithium_tpu import params as jparams
 from dilithium_tpu import scheme as jscheme
-from dilithium_tpu_torch import convert, oracle, params, scheme
+from dilithium_tpu_torch import api, convert, mxu, oracle, params, scheme
 from dilithium_tpu_torch.ops import ntt, pack
 
 RNG_SEED = 707
@@ -136,3 +137,55 @@ def test_signers_match_oracle():
         scheme.sign_stream_keys(eks, torch.zeros(4, dtype=torch.int64), mus_t, p)
     with pytest.raises(IndexError):
         scheme.sign_stream_keys(eks, torch.tensor([0, 1, 2, 3, 0]), mus_t, p)
+
+
+def test_default_window_by_level(monkeypatch):
+    """window=None takes the level's `scheme.default_window` in every
+    stream signer (the dense attempt, the one-key and the keyed NTT-form
+    attempts) and in the api's services; an explicit window wins, and a
+    call runs min(window, Q) slots. The loop is stubbed to record the W it
+    is handed, so no key material is built but level 2's, for the api."""
+    seen = []
+
+    def loop(attempt_fn, mu, rhoprime, p, W, max_rounds):
+        seen.append(W)
+        n = mu.shape[0]
+        return scheme.SignResult(torch.zeros((n, p.sig_bytes), dtype=torch.uint8),
+                                 torch.ones(n, dtype=torch.int32), torch.ones(n, dtype=torch.bool), 1)
+
+    monkeypatch.setattr(scheme, "_stream_loop", loop)
+    key = torch.zeros(32, dtype=torch.uint8)
+    ops = mxu.KeyOperators(torch.zeros((4, 4), dtype=torch.int8), torch.zeros((4, 4), dtype=torch.int8),
+                           key, key)
+    ek = scheme.ExpandedKey(None, None, None, None, key, key)
+    eks = ek._replace(key=key[None])
+    for level in (2, 3, 5):
+        p = params.get_params(level)
+        default = scheme.default_window(p)
+        assert isinstance(default, int) and default >= 768, (level, default)
+        q = default + 1
+        mu = torch.zeros((q, 64), dtype=torch.uint8)
+        signers = {
+            "mxu": lambda m, **kw: mxu.sign_stream_mxu(ops, m, p, rhoprime=m, **kw),
+            "stream": lambda m, **kw: scheme.sign_stream(ek, m, p, rhoprime=m, **kw),
+            "keys": lambda m, **kw: scheme.sign_stream_keys(eks, torch.zeros(len(m), dtype=torch.int64), m,
+                                                            p, rhoprime=m, **kw),
+        }
+        for name, sign in signers.items():
+            for kw, n, want in (({}, q, default), ({"window": None}, 3, 3), ({"window": 5}, q, 5)):
+                sign(mu[:n], **kw)
+                assert seen.pop() == want, (level, name, kw, n)
+        mxu.MxuSigner(ops, p)(mu)
+        mxu.MxuSigner(ops, p, window=5)(mu)
+        assert seen == [default, 5], level
+        seen.clear()
+
+    p = params.get_params(2)
+    _, sk = oracle.keygen(2, np.zeros((1, 32), dtype=np.uint8))
+    q = scheme.default_window(p) + 1
+    msgs = [i.to_bytes(2, "little") for i in range(q)]
+    for window, want in ((None, q - 1), (5, 5)):
+        assert len(api.Signer(2, sk[0], mode="mxu", window=window, device="cpu").sign(msgs)) == q
+        assert len(api.MultiSigner(2, [sk[0]], window=window, device="cpu").sign([(0, m) for m in msgs])) == q
+        assert seen == [want, want], window
+        seen.clear()

@@ -74,10 +74,13 @@ def test_converted_state_signs_like_jax(level2):
         _eq(got, exp, name)
 
 
-@pytest.mark.parametrize("level,window", [(2, 4), (3, 3), (5, 4)])
+@pytest.mark.parametrize("level,window", [(2, 4), (3, 3), (5, 4), (2, 7)])
 def test_slice_matches_oracle(level, window):
     """Keygen and stream signing (steady rounds, then the elastic drain)
-    against the C++ oracle: keys, signature bytes and attempts."""
+    against the C++ oracle: keys, signature bytes and attempts. At W = Q
+    (7 messages) no queue item is left to refill a slot, so from the first
+    signature on every round is a drain, in which idle slots try the
+    unsigned items' next kappas, up to W attempts an item a round."""
     p = params.get_params(level)
     rng = np.random.default_rng(RNG_SEED + level)
     seed = rng.integers(0, 256, size=(1, 32), dtype=np.uint8)
