@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's Dilithium signing and verify paths, its bytes
-API and CLI, its kernel micro-bench and its measurement entry points on
-one CUDA card.
+API and CLI, its kernel micro-bench and its window sweep on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -112,36 +112,30 @@ line):
      a card, every process with the global counters, the shards accepted
      by oracle.verify and 512 equal to oracle.sign; then phase 9's
      seconds.
- 10. the port's measurement entry points at full width, each in its own
-     process: `python -m dilithium_tpu_torch.bench` in its six modes at
-     level 3 and in `mxu` and `verify` at levels 2 and 5
-     (DILITHIUM_BENCH_ITERS=3: three timed blocks of one call, the 15%
-     guard, the gate on), each mode's value, blocks and spread;
-     `tools/sweep_window.py` at level 3 over W = 512, 768, 1024 and 1536;
-     `bench_round` at W = 768; `bench_components` at B = 1024 with its
-     latencies at B = 1 and 64; `tools/profile_sign` (W = 768) and
-     `tools/profile_verify` (B = 16384); `bench_scaling` in one process a
-     visible card. A failure in any exits non-zero; K1-K5 must show
-     launches in the `launches` lines the entry points print;
-     10b. every shape the entry points launched (their `shapes` lines:
-     a kernel and the scalar arguments of its launch) that no row of
-     phases 3 and 6 ran, against its plain version, bit-equal, on
-     inputs of its own generator (K1 at levels 2 and 5 and at
-     bench_components' sizes, K2 at levels 2 and 5 and the sweep's
-     windows, K3 at every tau, K4 at bench_components' batches, K5 on
-     [30720, 25], ...), each row with its time and bound.
+ 10. 10a, the window sweep (`tools/sweep_window.py`'s setup and measure,
+     in this process) at level 3 on the mxu and keys paths and at levels
+     2 and 5 on the mxu path, each at W = 768 and the level's default
+     window (8192 at levels 2 and 3, 6144 at level 5), Q = 16384, two
+     readings of one call: every W's signatures equal, 512 equal to
+     oracle.sign under their keys; its JSON line; 10b, every shape phases
+     5-10a launched (`_kernels.SHAPES` from phase 5's start on: a kernel
+     and the scalar arguments of its launch) that no row of phases 3 and
+     6 ran, against its plain version, bit-equal, on inputs of its own
+     generator, each row with its time and bound.
 Then one JSON line with every kernel's launches (phase 5 for K1-K4,
 phase 6 for K5-K7; `verify_launches` from phase 7, `api_launches` from
-phase 8's counted runs, `parallel_launches` from phase 9a's,
-`entry_launches` from phase 10's entry points), error, time,
-device-only time, plain time, bound and share (bound / device-only time),
-the card line again, and last
-{"ok": true, "device": {...}}.
+phase 8's counted runs, `parallel_launches` from phase 9a's), error,
+time, device-only time, plain time, bound and share (bound / device-only
+time), the card line again, and last {"ok": true, "device": {...}}.
 
-A kernel's bound is the larger of its bytes (each input read once, each
-output written once) over 3.35 TB/s and its 32-bit integer instructions
-over 64 a clock on each SM at the card's maximum SM clock (nvidia-smi
-clocks.max.sm); a Keccak-f[1600] counts PERM_OPS instructions.
+A kernel's bound is the benchmark's (`benchmark/roofline/counts.py`,
+read, never written here): the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its 32-bit integer
+instructions over 132 SMs x 64 lanes x 1980 MHz, the card's peaks at
+700 W; a Keccak-f[1600] counts `counts.PERM_OPS` instructions. Where
+this card's SM count or `clocks.max.sm` differs from `counts.py`'s, the
+bounds line says so and every kernel row has bound_peaks_match_card
+false.
 
 Needs no network and imports nothing of JAX; the C++ oracle (cpp/) is
 built with make on first use.
@@ -161,6 +155,8 @@ from collections import Counter
 
 import numpy as np
 import torch
+
+from benchmark.roofline import counts
 
 SEED = 2026
 Q_MAIN, W_MAIN = 16384, 768
@@ -183,29 +179,14 @@ KERNELS = {
 }
 MAIN_KERNELS = ("sponge", "mask_limbs", "ball", "ntt")
 BENCH_KERNELS = ("permute", "sponge_planes", "ball_bitplane")
-
-MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_PER_SM_CLOCK = 64  # 32-bit integer lanes per SM (Hopper)
-# 32-bit instructions of one Keccak-f[1600] with 3-input logic (LOP3) and
-# 64-bit rotates as two funnel shifts, per round: theta's column parities
-# 20, its five rotates 10, its 25 lane updates 50, rho 48, chi 50, iota 2
-PERM_OPS = 24 * 180
-# a Shoup butterfly: 3 multiplies and 6 adds, subtracts and selects
-BUTTERFLY_OPS = 9
+# phase 10a: (level, path) of the window sweep, each at W_MAIN and the
+# level's default window
+SWEEPS = ((3, "mxu"), (3, "keys"), (2, "mxu"), (5, "mxu"))
 
 
-def sponge_work(batch: int, msg_len: int, out_bytes: int, rate: int):
-    """(bytes, ops) of a sponge over [batch, msg_len] -> out_bytes."""
-    perms = msg_len // rate + 1 + -(-out_bytes // rate) - 1
-    return batch * (msg_len + out_bytes), batch * perms * PERM_OPS
-
-
-def ntt_work(batch: int, inverse: bool):
-    """(bytes, ops) of batch NTTs: 8 x 128 butterflies, and the inverse's
-    256 scaling products (4 ops each)."""
-    return batch * 2 * 256 * 4, batch * (8 * 128 * BUTTERFLY_OPS + (256 * 4 if inverse else 0))
-
-
+# SampleInBall's bytes by the sectors each row's walk reads: the one count
+# that `benchmark/roofline/counts.py` lacks (its `ball_work` counts a byte a
+# take, `ball_stream_work` the whole stream)
 def ball_consumed(stream: torch.Tensor, tau: int) -> torch.Tensor:
     """Bytes of each stream row that SampleInBall reads (int64 [B]): the 8
     sign bytes and the rest up to the tau-th take, or the whole row where
@@ -221,7 +202,7 @@ def ball_consumed(stream: torch.Tensor, tau: int) -> torch.Tensor:
     return end
 
 
-def ball_work(stream: torch.Tensor, tau: int):
+def ball_sector_work(stream: torch.Tensor, tau: int):
     """(bytes, ops) of SampleInBall on this run's streams: of each row the
     32-byte sectors that hold the bytes its walk reads (`ball_consumed`,
     where the row lies in memory), c (int32) and ok written; ops count
@@ -232,25 +213,12 @@ def ball_work(stream: torch.Tensor, tau: int):
     return int(sectors.sum()) * 32 + b * (256 * 4 + 1), b * 256
 
 
-def ball_stream_work(batch: int, nbytes: int):
-    """(bytes, ops) of SampleInBall as earlier runs bounded it: the whole
-    stream read, whatever the walks need of it."""
-    return batch * (nbytes + 256 * 4 + 1), batch * 256
-
-
-def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()
-    return float(out[0]) * 1e6
-
-
-def bound(work, int_ops_per_s: float):
-    """(bound_ms, bound_by) of (bytes, ops)."""
+def bound(work):
+    """(bound_ms, bound_by) of (bytes, ops) at the card's peaks
+    (`counts.bound_s`)."""
     nbytes, ops = work
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / int_ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    by = "bytes" if nbytes / counts.MEM_BYTES_PER_S >= ops / counts.INT32_OPS_PER_S else "operations"
+    return counts.bound_s(work) * 1e3, by
 
 
 def card_line() -> str:
@@ -259,6 +227,16 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def card_peaks() -> tuple:
+    """(SMs, the largest SM clock in MHz) of card 0, which the bounds
+    take from `counts.py` (`counts.SMS`, `counts.SM_CLOCK_HZ`)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count, float(mhz)
 
 
 def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
@@ -286,7 +264,7 @@ def max_abs_err(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max().cpu())
 
 
-def comparer(phase: str, rows: list, int_ops: float):
+def comparer(phase: str, rows: list):
     """compare(kernel, label, fn, plain_fn, work, primary): check fn
     against plain_fn bit for bit, time both, and append a row, with the
     shapes (`_kernels.SHAPES` keys) fn's first call launched. A second
@@ -306,11 +284,11 @@ def comparer(phase: str, rows: list, int_ops: float):
             raise AssertionError(f"{kernel} {label} differs from its plain version")
         ms, dev_ms = time_ms(fn), device_ms(fn)
         plain_ms = time_ms(plain_fn) if time_plain else None
-        bound_ms, bound_by = bound(work, int_ops)
+        bound_ms, bound_by = bound(work)
         plain = f"{plain_ms:.4f} ms" if time_plain else "not timed"
         second = ""
         if stream_work is not None:
-            stream_ms = bound(stream_work, int_ops)[0]
+            stream_ms = bound(stream_work)[0]
             second = f"; whole-stream bound {stream_ms:.6f} ms ({stream_ms / dev_ms:.2%})"
         print(f"{phase}: {kernel} {label}: max_abs_err {err} kernel {ms:.4f} ms device {dev_ms:.4f} ms "
               f"plain {plain} bound {bound_ms:.6f} ms ({bound_by}, {bound_ms / dev_ms:.2%} of device){second}")
@@ -320,7 +298,7 @@ def comparer(phase: str, rows: list, int_ops: float):
     return compare
 
 
-def check_kernels(rng, dev, int_ops):
+def check_kernels(rng, dev):
     """Phase 3: kernel vs plain version at the main path's shapes and at
     edge shapes."""
     from dilithium_tpu_torch.params import get_params
@@ -329,7 +307,7 @@ def check_kernels(rng, dev, int_ops):
 
     p = get_params(3)
     rows = []
-    compare = comparer("phase 3", rows, int_ops)
+    compare = comparer("phase 3", rows)
 
     # the edge rows draw from their own generator, so the main path's
     # inputs in later phases stay those of earlier runs
@@ -367,7 +345,7 @@ def check_kernels(rng, dev, int_ops):
         compare("sponge", f"{label} [{b}, {n}] -> {out} rate {rate}",
                 lambda: keccak.sponge(msg, out, rate, domain),
                 lambda: keccak.sponge_plain(msg, out, rate, domain),
-                sponge_work(b, n, out, rate), primary=label == "c_tilde")
+                counts.sponge_work(b, n, out, rate), primary=label == "c_tilde")
 
     # the verify path's sponges at phase 7's batch: the ball stream and
     # c_tilde' = SHAKE256(mu || w1') of Q_MAIN signatures (a generator of
@@ -378,7 +356,7 @@ def check_kernels(rng, dev, int_ops):
         msg = u8(Q_MAIN, n, g=verify_rng)
         compare("sponge", f"{label} [{Q_MAIN}, {n}] -> {out} rate 136",
                 lambda: keccak.sponge(msg, out, 136, 0x1F),
-                lambda: keccak.sponge_plain(msg, out, 136, 0x1F), sponge_work(Q_MAIN, n, out, 136))
+                lambda: keccak.sponge_plain(msg, out, 136, 0x1F), counts.sponge_work(Q_MAIN, n, out, 136))
 
     # the generic signers' ExpandMask: a stream round's W x L messages and a
     # lockstep round's B x A x L (a generator of their own, as above)
@@ -388,7 +366,7 @@ def check_kernels(rng, dev, int_ops):
         compare("sponge", f"{label} [{b}, 66] -> {p.polyz_packedbytes} rate 136",
                 lambda: keccak.sponge(msg, p.polyz_packedbytes, 136, 0x1F),
                 lambda: keccak.sponge_plain(msg, p.polyz_packedbytes, 136, 0x1F),
-                sponge_work(b, 66, p.polyz_packedbytes, 136))
+                counts.sponge_work(b, 66, p.polyz_packedbytes, 136))
 
     # phase 8b's other sponges: the key set-up of keygen and expand_sk at
     # the `keys` run's N_KEYS keys and the `lockstep` run's LOCKSTEP_Q, and
@@ -407,7 +385,7 @@ def check_kernels(rng, dev, int_ops):
         msg = u8(b, n, g=setup_rng)
         compare("sponge", f"{label} [{b}, {n}] -> {out} rate {rate}",
                 lambda: keccak.sponge(msg, out, rate, 0x1F),
-                lambda: keccak.sponge_plain(msg, out, rate, 0x1F), sponge_work(b, n, out, rate))
+                lambda: keccak.sponge_plain(msg, out, rate, 0x1F), counts.sponge_work(b, n, out, rate))
 
     for level, W, kappa_at in ((3, W_MAIN, None), (3, 769, None), (2, W_MAIN, None),
                                (5, W_MAIN, None), (3, 64, 65534)):
@@ -421,16 +399,15 @@ def check_kernels(rng, dev, int_ops):
         compare("mask_limbs", f"level {level} W={W} L={lp.L}" + (f" kappa={kappa_at}" if kappa_at else ""),
                 lambda: sampling.expand_mask_limbs(rp, kappa, lp),
                 lambda: sampling.mask_limbs_plain(rp, kappa, lp),
-                (W * (64 + 4 + 3 * lp.L * 256),
-                 W * lp.L * sponge_work(1, 66, lp.polyz_packedbytes, 136)[1]),
+                counts.mask_limbs_work(W, lp.L, lp.gamma1_bits),
                 primary=(level, W, kappa_at) == (3, W_MAIN, None))
 
     stream = keccak.sponge_plain(u8(W_MAIN, 32), 272, 136, 0x1F)
     stream[:4, 8:] = 255  # no candidate taken: ok = 0, the j = 0 fill path
 
     compare("ball", f"level 3 B={W_MAIN}", lambda: sampling.sample_in_ball_stream(stream, p.tau),
-            lambda: sampling.sample_in_ball_plain(stream, p.tau), ball_work(stream, p.tau), primary=True,
-            stream_work=ball_stream_work(W_MAIN, 272))
+            lambda: sampling.sample_in_ball_plain(stream, p.tau), ball_sector_work(stream, p.tau), primary=True,
+            stream_work=counts.ball_stream_work(W_MAIN, 272))
     # K3's edges at every level: ragged batches around its 4 warps a block;
     # the band-heavy, exact-limit, all-take, no-take and last-byte rows of
     # `ball_edges` at the top of each batch (four no-take rows after them);
@@ -449,14 +426,14 @@ def check_kernels(rng, dev, int_ops):
             st = flat[offset:].view(b, nbytes)
             compare("ball", f"edge level {level} B={b} {nbytes} B" + (f" offset {offset}" if offset else ""),
                     lambda: sampling.sample_in_ball_stream(st, tau),
-                    lambda: sampling.sample_in_ball_plain(st, tau), ball_work(st, tau),
-                    stream_work=ball_stream_work(b, nbytes))
+                    lambda: sampling.sample_in_ball_plain(st, tau), ball_sector_work(st, tau),
+                    stream_work=counts.ball_stream_work(b, nbytes))
 
     # a lockstep round's challenges: B x A streams
     st = keccak.sponge_plain(u8(LOCKSTEP_Q * ATTEMPTS, 32, g=generic_rng), 272, 136, 0x1F)
     compare("ball", f"lockstep level 3 B={st.shape[0]}", lambda: sampling.sample_in_ball_stream(st, p.tau),
-            lambda: sampling.sample_in_ball_plain(st, p.tau), ball_work(st, p.tau),
-            stream_work=ball_stream_work(st.shape[0], 272))
+            lambda: sampling.sample_in_ball_plain(st, p.tau), ball_sector_work(st, p.tau),
+            stream_work=counts.ball_stream_work(st.shape[0], 272))
 
     def coeffs(b, g=rng):
         return torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
@@ -509,7 +486,7 @@ def check_kernels(rng, dev, int_ops):
         for name, fns in (("forward", forward), ("inverse product", inv_product), ("inverse plain", inv_plain))
     ]:
         compare("ntt", label, lambda: fn(x), lambda: plain_fn(x),
-                ntt_work(x.shape[0], "inverse" in label), primary)
+                counts.ntt_work(x.shape[0], "inverse" in label), primary)
     return rows
 
 
@@ -659,7 +636,7 @@ def main_path(rng, dev):
     mus = torch.from_numpy(mus_np).to(dev)
 
     torch.cuda.synchronize()
-    _kernels.reset_launches()
+    _kernels.reset_launches()  # the one reset: phase 10b holds every shape launched from here on
     t0 = time.perf_counter()
     kp = scheme.keygen(seed, p)
     signer = mxu.MxuSigner(mxu.build_operators(kp.sk, p), p, window=W_MAIN)
@@ -733,7 +710,7 @@ def verify_path(main, dev):
         raise AssertionError("verify path: the oracle's answers are not as built")
 
     torch.cuda.synchronize()
-    _kernels.reset_launches()
+    before = Counter(_kernels.SHAPES)
     t = time.perf_counter()
     verifier = mxu.MxuVerifier(mxu.build_verify_operators(pk, p), p)
     torch.cuda.synchronize()
@@ -755,7 +732,7 @@ def verify_path(main, dev):
         got[name] = fn().cpu().numpy()
         top = torch.cuda.max_memory_allocated()
         peak[name] = (top / 2**20, (top - base) / 2**20)
-    launches = _kernels.launches()
+    launches = by_kernel(_kernels.SHAPES - before)
     missing = [k for k in ("sponge", "ball", "ntt") if launches[k] == 0]
     if missing:
         raise AssertionError(f"verify path launched no {missing} kernel")
@@ -814,18 +791,18 @@ def ab_turns(sides: dict) -> dict:
     return {side: statistics.median(ms) for side, ms in device_ms_turns(sides).items()}
 
 
-def check_bench_path(rng, dev, int_ops):
+def check_bench_path(rng, dev):
     """Phase 6: K5-K7 against their plain versions at their primary and
     edge shapes, K6 against K1 and K7 against K3 at the port's own shapes
     (bit-equal, then timed in turns), then the kernel bench at full width,
     counted."""
-    from dilithium_tpu_torch import _kernels, bench_kernels
+    from dilithium_tpu_torch import bench_kernels
     from dilithium_tpu_torch.ops import keccak, sampling
     from dilithium_tpu_torch.params import SHAKE128_RATE, SHAKE256_RATE, get_params
     from dilithium_tpu_torch.tools import ball_edges, ball_exp, round_profile, xof_exp
 
     rows = []
-    compare = comparer("phase 6", rows, int_ops)
+    compare = comparer("phase 6", rows)
 
     def lanes(b):
         return torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, (b, 25), dtype=np.int64)).to(dev)
@@ -836,10 +813,10 @@ def check_bench_path(rng, dev, int_ops):
     planes = lanes(N_STATES).t().contiguous()
     compare("permute", f"planes [25, {N_STATES}]", lambda: keccak.keccak_f1600_planes(planes),
             lambda: keccak.keccak_f1600_plain(planes.t().contiguous()).t(),
-            (N_STATES * 400, N_STATES * PERM_OPS), primary=True)
+            counts.permute_work(N_STATES), primary=True)
     st = lanes(16421)  # a batch that is not a multiple of the block
     compare("permute", "[16421, 25]", lambda: keccak.keccak_f1600(st),
-            lambda: keccak.keccak_f1600_plain(st), (st.shape[0] * 400, st.shape[0] * PERM_OPS))
+            lambda: keccak.keccak_f1600_plain(st), counts.permute_work(st.shape[0]))
 
     def planes_case(b, msg_len, out_words, rate, primary=False, form=None):
         msgs = u8(b, msg_len)
@@ -851,7 +828,7 @@ def check_bench_path(rng, dev, int_ops):
         compare("sponge_planes", f"[{xp.shape[0]}, {b}] -> [{b}, {out_words}] rate {rate} ({launched} form)",
                 lambda: xof_exp.shake_words_batchmajor(xp, out_words, rate_w),
                 lambda: xof_exp.shake_words_batchmajor_plain(xp, out_words, rate_w),
-                (b * (xp.shape[0] + out_words) * 4, sponge_work(b, msg_len, 4 * out_words, rate)[1]),
+                counts.sponge_planes_work(b, xp.shape[0], msg_len, out_words, rate),
                 primary=primary)
         return msgs
 
@@ -905,8 +882,8 @@ def check_bench_path(rng, dev, int_ops):
     stream = keccak.shake256(u8(b, 32), p.ball_blocks * SHAKE256_RATE)
     stream[:4, 8:] = 255
     compare("ball_bitplane", f"B={b}", lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
-            lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau), ball_work(stream, p.tau), primary=True,
-            stream_work=ball_stream_work(b, stream.shape[1]))
+            lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau), ball_sector_work(stream, p.tau), primary=True,
+            stream_work=counts.ball_stream_work(b, stream.shape[1]))
     v1 = ball_exp.sample_in_ball_v1(stream, p.tau)
     if max_abs_err(v1, sampling.sample_in_ball_stream(stream, p.tau)) != 0.0 or bool(v1[1][:4].any()):
         raise AssertionError("K7 differs from K3, or a no-take row is ok")
@@ -941,8 +918,8 @@ def check_bench_path(rng, dev, int_ops):
             stream = keccak.shake256(u8(b, 32), nbytes)
             stream[:edges.shape[0]] = edges
             compare("ball_bitplane", f"level {level} B={b}", lambda: ball_exp.sample_in_ball_v1(stream, p.tau),
-                    lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau), ball_work(stream, p.tau),
-                    time_plain=b == 16421, stream_work=ball_stream_work(b, nbytes))
+                    lambda: ball_exp.sample_in_ball_v1_plain(stream, p.tau), ball_sector_work(stream, p.tau),
+                    time_plain=b == 16421, stream_work=counts.ball_stream_work(b, nbytes))
             v1 = ball_exp.sample_in_ball_v1(stream, p.tau)
             k3_err = max_abs_err(v1, sampling.sample_in_ball_stream(stream, p.tau))
             if k3_err != 0.0:
@@ -958,12 +935,8 @@ def check_bench_path(rng, dev, int_ops):
         + f" -> {min(med, key=med.get)} faster, {max(med.values()) / min(med.values()):.2f}x the slowest"
         for name, med in answers))
 
-    torch.cuda.synchronize()
-    _kernels.reset_launches()
     t = time.perf_counter()
-    res = bench_kernels.run(N_STATES, N_POLYS, dev)
-    torch.cuda.synchronize()
-    launches = _kernels.launches()
+    res, launches = counted(lambda: bench_kernels.run(N_STATES, N_POLYS, dev))
     missing = [k for k in BENCH_KERNELS + ("sponge", "ball", "ntt") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernel-bench path launched no {missing} kernel")
@@ -975,16 +948,25 @@ def check_bench_path(rng, dev, int_ops):
     return rows, launches
 
 
+def by_kernel(shapes: Counter) -> dict:
+    """{kernel: launches} of a Counter of `_kernels.SHAPES` keys, every
+    kernel named."""
+    out = dict.fromkeys(KERNELS, 0)
+    for (name, *_), n in shapes.items():
+        out[name] += n
+    return out
+
+
 def counted(fn):
-    """Run fn() with every kernel count set to 0 just before it and read
-    just after -> (its result, {kernel: launches})."""
+    """Run fn() -> (its result, {kernel: launches}): what it added to
+    `_kernels.SHAPES`, which nothing resets after phase 5's start."""
     from dilithium_tpu_torch import _kernels
 
     torch.cuda.synchronize()
-    _kernels.reset_launches()
+    before = Counter(_kernels.SHAPES)
     out = fn()
     torch.cuda.synchronize()
-    return out, _kernels.launches()
+    return out, by_kernel(_kernels.SHAPES - before)
 
 
 def require(launches: dict, kernels, what: str) -> None:
@@ -1503,7 +1485,7 @@ def launcher_path() -> None:
     n = torch.cuda.device_count()
     torch.cuda.empty_cache()
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = entry_env()
+    env = child_env()
     for flags, per_card in ((["--signer=mxu", "--verify"], Q_MAIN),
                             (["--signer=keys", "--nkeys=1", "--verify"], 2048)):
         batch = per_card * n
@@ -1547,126 +1529,40 @@ def launcher_path() -> None:
               + ("; one card: no cross-card all-reduce ran" if n == 1 else f"; across {n} cards"))
 
 
-BENCH_ITERS = 3  # bench.py's three blocks of one call each
-# phase 10's bench.py runs: every mode at level 3, the dense signer and
-# verify at levels 2 and 5
-BENCH_RUNS = [(3, mode) for mode in ("mxu", "serve", "keys", "stream", "batch", "verify")] + [
-    (level, mode) for level in (2, 5) for mode in ("mxu", "verify")]
-SWEEP_WINDOWS = (512, 768, 1024, 1536)
-ENTRY_KERNELS = ("sponge", "mask_limbs", "ball", "ntt", "permute")
-# bench.py's diagnostics that phase 10 prints beside a mode's line
-BENCH_NOTES = ("set-up", "first call", "peak memory", "serve:")
-
-
-def entry_env(**extra) -> dict:
+def child_env() -> dict:
+    """This environment with the repo root on PYTHONPATH, for `python -m`
+    children."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    return dict(os.environ, PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x),
-                **{k: str(v) for k, v in extra.items()})
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(x for x in (repo, os.environ.get("PYTHONPATH")) if x))
 
 
-def launches_in(stderr: str) -> tuple:
-    """The sums of an entry point's `launches {...}` and `shapes [...]`
-    lines (`bench.log_launches`) -> (Counter by kernel, Counter by shape)."""
-    total, shapes = Counter(), Counter()
-    for ln in stderr.splitlines():
-        if ln.startswith("launches "):
-            total.update(json.loads(ln[len("launches "):]))
-        elif ln.startswith("shapes "):
-            shapes.update({tuple(k[:-1]): k[-1] for k in json.loads(ln[len("shapes "):])})
-    return total, shapes
+def sweep_path(dev) -> None:
+    """Phase 10a: `tools/sweep_window.py`'s setup and measure in this
+    process, at each (level, path) of SWEEPS, Q = Q_MAIN, W = W_MAIN and
+    the level's default window, two readings of one call: every W's
+    signatures equal, the first N_ORACLE_SIGN equal to oracle.sign under
+    their keys; its JSON line. The kernels' shapes at the default windows
+    reach phase 10b."""
+    from dilithium_tpu_torch import oracle, scheme
+    from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import sweep_window
 
-
-def last_json(out: str):
-    return json.loads(next((ln for ln in reversed(out.splitlines()) if ln.startswith("{")), "null"))
-
-
-def entry_point(args, what: str, timeout: int = 900, **env):
-    """`python -m <args>` from the repo root, to its end -> (its last JSON
-    line, the finished process). Raises when it exits non-zero or its
-    line has no value where it should."""
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=os.path.dirname(os.path.abspath(__file__)),
-                          env=entry_env(**env), capture_output=True, text=True, timeout=timeout)
-    line = last_json(proc.stdout)
-    if proc.returncode != 0 or line is None or ("value" in line and line["value"] is None):
-        raise AssertionError(f"phase 10 {what}: exit {proc.returncode}, line {line}: {proc.stderr[-3000:]}")
-    return line, proc
-
-
-def entry_points_path() -> Counter:
-    """Phase 10: the port's measurement entry points at full width, each
-    in its own process: `dilithium_tpu_torch.bench` in every mode at
-    level 3 and in mxu and verify at levels 2 and 5 (3 timed blocks of one
-    call each, its gate on), the window sweep at level 3, `bench_round` at
-    W = 768, `bench_components` at B = 1024 with its latencies, both
-    stage profiles and `bench_scaling` over the visible cards. Returns
-    the launches the entry points report, by kernel and by shape; K1-K5
-    must have launched."""
-    torch.cuda.empty_cache()
-    total, shapes = Counter(), Counter()
-
-    def add(stderr: str) -> None:
-        by_kernel, by_shape = launches_in(stderr)
-        total.update(by_kernel)
-        shapes.update(by_shape)
-
-    t = time.perf_counter()
-    for level, mode in BENCH_RUNS:
-        line, proc = entry_point(["dilithium_tpu_torch.bench"], f"bench {mode} level {level}",
-                                 DILITHIUM_BENCH_MODE=mode, DILITHIUM_BENCH_LEVEL=level,
-                                 DILITHIUM_BENCH_ITERS=BENCH_ITERS)
-        add(proc.stderr)
-        blocks = line["blocks"]
-        notes = [ln for ln in proc.stderr.splitlines() if ln.startswith(BENCH_NOTES)]
-        print(f"phase 10: bench {mode} level {level}: {line['value']} {line['unit']} ({line['device']}, "
-              f"{line['power_limit_w']} W), over the window {line['window_value']}, blocks {blocks}, "
-              f"spread (max - min) / value "
-              f"{(max(blocks) - min(blocks)) / line['value']:.1%}; {'; '.join(notes)}")
-
-    sweep, proc = entry_point(["dilithium_tpu_torch.tools.sweep_window", "3", *map(str, SWEEP_WINDOWS)],
-                              "sweep_window", timeout=1800, DILITHIUM_BENCH_ITERS=BENCH_ITERS)
-    add(proc.stderr)
-    blocks = {ln.split()[0]: json.loads(ln.split(" ", 1)[1])["blocks"]
-              for ln in proc.stdout.splitlines() if ln.startswith("W=") and " {" in ln}
-    print(f"phase 10: sweep_window level 3 (bench mxu, {BENCH_ITERS} blocks of one call): signs/sec "
-          f"{sweep['values']}, best W = {sweep['best_window']}; blocks {blocks}")
-
-    line, proc = entry_point(["dilithium_tpu_torch.bench_round", str(W_MAIN)], "bench_round")
-    add(proc.stderr)
-    print(f"phase 10: bench_round W={W_MAIN}: {json.dumps(line)}")
-    line, proc = entry_point(["dilithium_tpu_torch.bench_components", "1024"], "bench_components")
-    add(proc.stderr)
-    print(f"phase 10: bench_components B=1024 ({line['device']}), ms a call: {json.dumps(line['ms'])}")
-    line, proc = entry_point(["dilithium_tpu_torch.tools.profile_sign", str(W_MAIN), "3"], "profile_sign")
-    add(proc.stderr)
-    print(f"phase 10: profile_sign W={W_MAIN} level 3, us a round (back to back; device only): "
-          f"{json.dumps(line['us_per_round'])}; {json.dumps(line['device_us_per_round'])}")
-    line, proc = entry_point(["dilithium_tpu_torch.tools.profile_verify", str(Q_MAIN)], "profile_verify")
-    add(proc.stderr)
-    print(f"phase 10: profile_verify B={Q_MAIN} level 3, ms a call (back to back; device only): "
-          f"{json.dumps(line['ms'])}; {json.dumps(line['device_ms'])}")
-
-    n = torch.cuda.device_count()
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "dilithium_tpu_torch.bench_scaling", f"--coordinator=127.0.0.1:{port}",
-         f"--num-processes={n}", f"--process-id={i}"], cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=entry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(n)]
-    try:
-        outs = [proc.communicate(timeout=900) for proc in procs]
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for proc, (_, err) in zip(procs, outs):
-        if proc.returncode != 0:
-            raise AssertionError(f"phase 10 bench_scaling: a rank exited {proc.returncode}: {err[-3000:]}")
-        add(err)
-    print(f"phase 10: bench_scaling over {n} card(s): {json.dumps(last_json(outs[0][0]))}")
-    require(total, ENTRY_KERNELS, "phase 10")
-    print(f"phase 10: {time.perf_counter() - t:.1f} s; launches the entry points report {dict(total)} "
-          f"at {len(shapes)} shapes")
-    return total, shapes
+    for level, path in SWEEPS:
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        windows = (W_MAIN, scheme.default_window(get_params(level)))
+        case = sweep_window.setup(path, level, Q_MAIN, N_KEYS, dev)
+        rates, first, differ = sweep_window.measure(case, windows, 1, 2, dev)
+        if differ:
+            raise AssertionError(f"phase 10a sweep level {level} {path}: the signatures at W = {differ} differ "
+                                 f"from those at W = {windows[0]}")
+        sk_o = np.stack([np.frombuffer(sk, dtype=np.uint8) for sk in case.sks])
+        sig_o, _ = oracle.sign(level, sk_o[case.key_of_row[:N_ORACLE_SIGN]], case.mus[:N_ORACLE_SIGN])
+        if not np.array_equal(first[:N_ORACLE_SIGN], sig_o):
+            raise AssertionError(f"phase 10a sweep level {level} {path}: signatures differ from oracle.sign")
+        print(f"phase 10a: sweep_window level {level} {path} at W = {windows}, every W's signatures equal, "
+              f"{N_ORACLE_SIGN} equal oracle.sign, {time.perf_counter() - t:.1f} s: "
+              f"{json.dumps(sweep_window.report(level, path, dev, Q_MAIN, rates))}")
 
 
 def shape_case(key, g, dev):
@@ -1674,6 +1570,7 @@ def shape_case(key, g, dev):
     plain_fn, work, stream_work)."""
     from dilithium_tpu_torch.ops import keccak, ntt, sampling
     from dilithium_tpu_torch.params import get_params
+    from dilithium_tpu_torch.tools import ball_exp, xof_exp
 
     def u8(*shape):
         return torch.from_numpy(g.integers(0, 256, shape, dtype=np.uint8)).to(dev)
@@ -1684,7 +1581,7 @@ def shape_case(key, g, dev):
         msg = u8(b, n)
         return (f"[{b}, {n}] -> {out} rate {rate} domain {domain:#x}",
                 lambda: keccak.sponge(msg, out, rate, domain), lambda: keccak.sponge_plain(msg, out, rate, domain),
-                sponge_work(b, n, out, rate), None)
+                counts.sponge_work(b, n, out, rate), None)
     if kernel == "mask_limbs":
         W, L, bits, _ = args
         level = next(lv for lv in (2, 3, 5) if (get_params(lv).L, get_params(lv).gamma1_bits) == (L, bits))
@@ -1693,49 +1590,65 @@ def shape_case(key, g, dev):
         kappa = torch.from_numpy(g.integers(0, 400, W).astype(np.int32) * L).to(dev)
         return (f"level {level} W={W} L={L}", lambda: sampling.expand_mask_limbs(rp, kappa, lp),
                 lambda: sampling.mask_limbs_plain(rp, kappa, lp),
-                (W * (64 + 4 + 3 * L * 256), W * L * sponge_work(1, 66, lp.polyz_packedbytes, 136)[1]), None)
+                counts.mask_limbs_work(W, L, bits), None)
     if kernel == "ball":
         b, tau, nbytes = args
         st = u8(b, nbytes)
         return (f"tau {tau} B={b} {nbytes} B", lambda: sampling.sample_in_ball_stream(st, tau),
-                lambda: sampling.sample_in_ball_plain(st, tau), ball_work(st, tau), ball_stream_work(b, nbytes))
+                lambda: sampling.sample_in_ball_plain(st, tau), ball_sector_work(st, tau),
+                counts.ball_stream_work(b, nbytes))
     if kernel == "ntt":
         b, inverse, scale, _ = args
         x = torch.from_numpy(g.integers(0, 8380417, (b, 256)).astype(np.int32)).to(dev)
         if not inverse:
-            return f"forward [{b}, 256]", lambda: ntt.ntt(x), lambda: ntt.ntt_plain(x), ntt_work(b, False), None
+            return (f"forward [{b}, 256]", lambda: ntt.ntt(x), lambda: ntt.ntt_plain(x),
+                    counts.ntt_work(b, False), None)
         fp = scale == ntt._SCALE_PRODUCT
         return (f"inverse {'product' if fp else 'plain'} [{b}, 256]", lambda: ntt.invntt(x, fp),
-                lambda: ntt.invntt_plain(x, fp), ntt_work(b, True), None)
+                lambda: ntt.invntt_plain(x, fp), counts.ntt_work(b, True), None)
     if kernel == "permute":
         b, state_stride, _ = args
         st = torch.from_numpy(g.integers(-(1 << 63), 1 << 63, (b, 25), dtype=np.int64)).to(dev)
-        work = (b * 400, b * PERM_OPS)
+        work = counts.permute_work(b)
         if state_stride == 25:
             return f"[{b}, 25]", lambda: keccak.keccak_f1600(st), lambda: keccak.keccak_f1600_plain(st), work, None
         planes = st.t().contiguous()
         return (f"planes [25, {b}]", lambda: keccak.keccak_f1600_planes(planes),
                 lambda: keccak.keccak_f1600_plain(st).t(), work, None)
+    if kernel == "sponge_planes":
+        b, n_in, out_words, rate_w = args
+        planes = torch.from_numpy(g.integers(-(1 << 31), 1 << 31, (n_in, b), dtype=np.int32)).to(dev)
+        # the longest message that pads to n_in words
+        work = counts.sponge_planes_work(b, n_in, 4 * n_in - 1, out_words, 8 * rate_w)
+        return (f"planes [{n_in}, {b}] -> [{b}, {out_words}] rate {8 * rate_w}",
+                lambda: xof_exp.shake_words_batchmajor(planes, out_words, rate_w),
+                lambda: xof_exp.shake_words_batchmajor_plain(planes, out_words, rate_w), work, None)
+    if kernel == "ball_bitplane":
+        b, tau, nbytes = args
+        st = u8(b, nbytes)
+        return (f"tau {tau} B={b} {nbytes} B", lambda: ball_exp.sample_in_ball_v1(st, tau),
+                lambda: ball_exp.sample_in_ball_v1_plain(st, tau), ball_sector_work(st, tau),
+                counts.ball_stream_work(b, nbytes))
     raise AssertionError(f"phase 10b: no inputs for {kernel} at {args}")
 
 
-def check_entry_shapes(shapes: Counter, covered: set, dev, int_ops) -> list:
-    """Phase 10b: every shape phase 10's entry points launched that no row
-    of phases 3 and 6 ran, held against its plain version, bit-equal, on
-    inputs from a generator of its own -> the rows."""
+def check_launched_shapes(shapes: Counter, covered: set, dev) -> list:
+    """Phase 10b: every shape phases 5-10a launched that no row of phases
+    3 and 6 ran, held against its plain version, bit-equal, on inputs from
+    a generator of its own -> the rows."""
     rows = []
-    compare = comparer("phase 10b", rows, int_ops)
+    compare = comparer("phase 10b", rows)
     g = np.random.default_rng(SEED + 10)
     missing = sorted(set(shapes) - covered)
     t = time.perf_counter()
     for key in missing:
         label, fn, plain_fn, work, stream_work = shape_case(key, g, dev)
-        compare(key[0], f"{label} ({shapes[key]} launches in phase 10)", fn, plain_fn, work,
+        compare(key[0], f"{label} ({shapes[key]} launches in phases 5-10a)", fn, plain_fn, work,
                 time_plain=False, stream_work=stream_work)
         if key not in rows[-1]["shapes"]:
             raise AssertionError(f"phase 10b: the row for {key} launched {rows[-1]['shapes']}")
         torch.cuda.empty_cache()
-    print(f"phase 10b: of the {len(shapes)} shapes phase 10 launched, {len(shapes) - len(missing)} were held "
+    print(f"phase 10b: of the {len(shapes)} shapes phases 5-10a launched, {len(shapes) - len(missing)} were held "
           f"by phases 3 and 6, the other {len(missing)} here, all bit-equal, in {time.perf_counter() - t:.1f} s")
     return rows
 
@@ -1758,50 +1671,51 @@ def main() -> int:
         ptxas = [ln.strip() for ln in f if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(f"phase 2: built {lib} in {time.perf_counter() - t:.1f} s; ptxas: {' | '.join(ptxas)}")
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = max_sm_clock_hz()
-    int_ops = sms * INT32_PER_SM_CLOCK * clock
-    print(f"bounds: {MEM_BYTES_PER_S / 1e12} TB/s; {sms} SMs x {INT32_PER_SM_CLOCK} INT32 lanes x "
-          f"{clock / 1e6:.0f} MHz (clocks.max.sm) = {int_ops / 1e12:.3f} T int32 ops/s")
+    sms, mhz = card_peaks()
+    peaks_match = sms == counts.SMS and mhz * 1e6 == counts.SM_CLOCK_HZ
+    print(f"bounds (benchmark/roofline/counts.py, at {counts.POWER_LIMIT_W} W): {counts.MEM_BYTES_PER_S / 1e12} "
+          f"TB/s; {counts.SMS} SMs x {counts.INT32_LANES_PER_SM} INT32 lanes x {counts.SM_CLOCK_HZ / 1e6:.0f} MHz = "
+          f"{counts.INT32_OPS_PER_S / 1e12:.3f} T int32 ops/s; this card: {sms} SMs, clocks.max.sm {mhz:.0f} MHz"
+          + ("" if peaks_match else " -- NOT counts.py's: every bound and share below is counts.py's card's, "
+             "not this card's (the JSON rows say bound_peaks_match_card false)"))
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    rows = check_kernels(rng, dev, int_ops)
+    rows = check_kernels(rng, dev)
     check_other_device()
     check_small_slice(rng, dev)
     check_small_verify(dev)
     launches, main = main_path(rng, dev)
-    bench_rows, bench_launches = check_bench_path(rng, dev, int_ops)
+    bench_rows, bench_launches = check_bench_path(rng, dev)
     verify_launches, ver = verify_path(main, dev)
     api_launches, full = api_path(dev)
     t = time.perf_counter()
     parallel_launches = parallel_path(main, ver, full, dev)
     launcher_path()
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
-    entry_launches, entry_shapes = entry_points_path()
+    sweep_path(dev)
     rows += bench_rows
     # rows that hold a kernel against another kernel (K6 vs K1) cover no shape
-    rows += check_entry_shapes(entry_shapes, set().union(*(r.get("shapes", ()) for r in rows)), dev, int_ops)
+    rows += check_launched_shapes(Counter(_kernels.SHAPES), set().union(*(r.get("shapes", ()) for r in rows)), dev)
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         primary = next(r for r in mine if r["primary"])
-        bound_ms, bound_by = bound(primary["work"], int_ops)
+        bound_ms, bound_by = bound(primary["work"])
         # SampleInBall's second bound: the whole stream read, as earlier runs counted it
         stream_bound = {}
         if primary.get("stream_work") is not None:
-            stream_ms = bound(primary["stream_work"], int_ops)[0]
+            stream_ms = bound(primary["stream_work"])[0]
             stream_bound = {"bound_stream_ms": stream_ms, "share_stream": stream_ms / primary["device_ms"]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "verify_launches": verify_launches[name],
             "api_launches": api_launches[name], "parallel_launches": parallel_launches[name],
-            "entry_launches": entry_launches[name],
             "max_abs_err": max(r["err"] for r in mine),
             "ms": primary["ms"], "device_ms": primary["device_ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": bound_ms, "share": bound_ms / primary["device_ms"],
-            "bound_by": bound_by, "library_ms": None, "shape": primary["shape"], **stream_bound,
+            "bound_by": bound_by, "bound_peaks_match_card": peaks_match, "library_ms": None, "shape": primary["shape"], **stream_bound,
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

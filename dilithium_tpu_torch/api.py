@@ -320,7 +320,6 @@ class Signer:
         self.device = torch.device(device)
         self.tr = _tr_of_sk(sk_b)
         self.mode = _mode(mode, self.device, "Signer")
-        self.window = window
         sk_t = _tensor(np.frombuffer(sk_b, dtype=np.uint8), self.device)
         if self.mode == "mxu":
             ops = _cached(cache_path, _expansion_meta("torch.KeyOperators", level, sk_b), self.device,
@@ -329,6 +328,19 @@ class Signer:
         else:
             self.expanded = _cached(cache_path, _expansion_meta("torch.ExpandedKey", level, sk_b),
                                     self.device, lambda: scheme.expand_sk(sk_t, self.p))
+
+    @property
+    def window(self) -> Optional[int]:
+        """Mode "mxu"'s window, read at every call (None: the level's
+        default); mode "batch" has none. Set it to sign the next calls at
+        another window."""
+        return self.signer.window if self.mode == "mxu" else None
+
+    @window.setter
+    def window(self, window: Optional[int]) -> None:
+        if self.mode != "mxu":
+            raise ValueError('Signer: a window applies to mode "mxu" only')
+        self.signer.window = window
 
     def sign(self, messages: Sequence[Bytes], randomized: bool = False) -> list:
         """Sign messages -> signatures; randomized as in `sign`."""
@@ -372,8 +384,6 @@ class MultiSigner:
                 if idx.min() < 0 or idx.max() >= len(self.trs):
                     raise IndexError(f"key index out of range 0..{len(self.trs) - 1}")
                 trs = [self.trs[i] for i in idx]
-                if trace.recording():
-                    trace.count("api.distinct_keys", np.count_nonzero(np.bincount(idx)))
             mus = compute_mu_many(trs, [m for _, m in key_message_pairs])
             rp = _fresh_rhoprime(len(idx), self.device) if randomized else None
             res = scheme.sign_stream_keys(self.expanded, _tensor(idx, self.device), _tensor(mus, self.device),

@@ -58,7 +58,8 @@ def test_package_imports_without_jax_triton_or_nvcc():
                 "utils", "utils.kat",
                 "ops.sampling", "ops.pack", "ops.rounding", "ops.reduce", "params",
                 "oracle", "bench_kernels", "tools.xof_exp", "tools.ball_exp",
-                "tools.kernel_ab", "tools.round_profile", "tools.ball_edges", "tools.verify_cases"):
+                "tools.kernel_ab", "tools.round_profile", "tools.ball_edges", "tools.verify_cases",
+                "tools.sweep_window"):
         assert f"dilithium_tpu_torch.{mod}" in proc.stdout, mod
 
 

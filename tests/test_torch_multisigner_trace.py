@@ -1,11 +1,10 @@
-"""`api.MultiSigner`'s spans and counter on the CPU at level 2: three
-keys, six messages with skewed key indices. Under `torch.profiler` the
-call records `api.keys` (the index check and the per-message tr list)
-and `scheme.sign_stream_keys` inside `api.sign`, and one `scheme.gather`
-(the slots' key material) inside each `scheme.round`; `api.distinct_keys`
-counts the keys the call touched. With no profiler nothing records. The
-signatures are the same bytes either way, and each equals the oracle's
-under its message's own key.
+"""`api.MultiSigner`'s spans on the CPU at level 2: three keys, six
+messages with skewed key indices. Under `torch.profiler` the call
+records `api.keys` (the index check and the per-message tr list) and
+`scheme.sign_stream_keys` inside `api.sign`, and one `scheme.gather`
+(the slots' key material) inside each `scheme.round`. With no profiler
+nothing records. The signatures are the same bytes either way, and each
+equals the oracle's under its message's own key.
 
 One test: a port file of two tests or fewer is handed out last by
 xdist's loadfile order (see ROADMAP)."""
@@ -69,7 +68,6 @@ def test_multisigner_spans_and_counter():
     assert spans["api.sign"]["n"] == spans["api.keys"]["n"] == spans["scheme.sign_stream_keys"]["n"] == 1
     rounds = counters["scheme.rounds"]
     assert spans["scheme.round"]["n"] == spans["scheme.gather"]["n"] == rounds > 0
-    assert counters["api.distinct_keys"] == len(set(KEYS)) == 2
     # the round loop's time is the scheme span's, not the api's own
     assert spans["api.sign"]["self_ms"] <= spans["api.sign"]["total_ms"] - spans["scheme.sign_stream_keys"]["total_ms"]
 
