@@ -1,22 +1,21 @@
 """SampleInBall on the streams that stress K3's take logic
 (`dilithium_tpu_torch/tools/ball_edges.py`): the port's plain version,
-K3's yardstick on the card, against the JAX package's jnp path, byte-equal,
-at levels 2, 3 and 5, on the 272-byte rows and the short 136-byte rows
-that `chip_smoke.py` phase 3 sends through K3.
+K3's yardstick on the card, against the JAX package's jnp path (its
+outputs recorded in `tests/jax_reference.py`), byte-equal, at levels 2, 3
+and 5, on the 272-byte rows and the short 136-byte rows that
+`chip_smoke.py` phase 3 sends through K3.
 
 The file holds two tests, so that xdist's loadfile order (files by test
 count, then by name) hands it out after the JAX package's slow two-test
 files and it runs on a worker that is otherwise idle (`ROADMAP.md` §3)."""
 
 import numpy as np
-import jax.numpy as jnp
 import torch
 
-from dilithium_tpu.ops import keccak as jkeccak
-from dilithium_tpu.ops import sampling as jsampling
 from dilithium_tpu_torch import params
 from dilithium_tpu_torch.ops import sampling
 from dilithium_tpu_torch.tools.ball_edges import edge_streams
+from jax_reference import assert_matches_jax, jax_ref
 
 LEVELS = [2, 3, 5]
 
@@ -34,19 +33,18 @@ def _walk(row: np.ndarray, tau: int):
     return np.array(takes), np.array(band)
 
 
-def test_edge_streams_match_jax(monkeypatch):
+def test_edge_streams_match_jax():
     """The JAX package's SampleInBall hashes c_tilde into the stream; with
     its SHAKE256 replaced by the identity it walks the given stream."""
-    monkeypatch.setattr(jkeccak, "shake256", lambda data, nbytes: data)
+    ref = jax_ref("ball_edges_streams")
     for level in LEVELS:
         p = params.get_params(level)
         for nbytes in (272, 136):
             streams = edge_streams(p.tau, nbytes, seed=level)
             c, ok = sampling.sample_in_ball_plain(torch.from_numpy(streams), p.tau)
-            c_j, ok_j = jsampling.sample_in_ball(jnp.asarray(streams), p)
             what = f"level {level}, {nbytes}-byte streams"
-            np.testing.assert_array_equal(c.numpy().astype(np.int64), np.asarray(c_j).astype(np.int64), what)
-            np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_j), what)
+            assert_matches_jax(c, ref[f"c {level} {nbytes}"], what)
+            assert_matches_jax(ok, ref[f"ok {level} {nbytes}"], what)
 
 
 def test_edge_streams_stress_the_take_logic():

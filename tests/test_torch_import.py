@@ -14,6 +14,9 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# about three times a probe's time in a loaded tier-1 run: a hang fails its
+# own test and leaves the suite its clock
+PROBE_TIMEOUT = 60
 
 _PROBE = r"""
 import subprocess, sys
@@ -45,9 +48,9 @@ print("imported", len(names), "modules:", " ".join(sorted(names)))
 
 
 def _probe(code: str) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")  # the test workers share the cores
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=240)
+                          capture_output=True, text=True, timeout=PROBE_TIMEOUT)
 
 
 def test_package_imports_without_jax_triton_or_nvcc():

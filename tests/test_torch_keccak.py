@@ -1,19 +1,19 @@
 """PyTorch port: SHAKE / SHA3 sponges vs hashlib and the JAX package.
 
 The shapes are every sponge call of the Dilithium-3 one-key signing path,
-plus ExpandMask's (which the signer runs inside the mask kernel).
+plus ExpandMask's (which the signer runs inside the mask kernel). The JAX
+package's outputs are recorded in `tests/jax_reference.py`.
 """
 
 import hashlib
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dilithium_tpu.ops import keccak as jkeccak
 from dilithium_tpu_torch import params
 from dilithium_tpu_torch.ops import keccak
+from jax_reference import assert_matches_jax, jax_ref
 
 P3 = params.get_params(3)
 
@@ -40,27 +40,24 @@ def test_path_shapes_match_hashlib_and_jax(name, msg_len, out_bytes, rate):
         assert got[i].tobytes() == HASHLIB[rate](data[i].tobytes()).digest(out_bytes), i
     words = keccak.shake_words(torch.from_numpy(data), out_bytes // 4, rate)
     assert words.dtype == torch.int64 and int(words.min()) >= 0
-    exp = np.asarray(jkeccak.shake_words(jnp.asarray(data), out_bytes // 4, rate))
-    np.testing.assert_array_equal(words.numpy(), exp.astype(np.int64))
+    assert_matches_jax(words, jax_ref("keccak_path_shapes")[name], name)
 
 
 def test_batch_shape_and_word_forms():
     data = np.random.default_rng(5).integers(0, 256, size=(2, 3, 40), dtype=np.uint8)
     t = torch.from_numpy(data)
+    ref = jax_ref("keccak_batch_forms")
     out = keccak.shake256(t, 48)
     assert out.shape == (2, 3, 48) and out.dtype == torch.uint8
-    np.testing.assert_array_equal(
-        out.numpy(), np.asarray(jkeccak.shake256(jnp.asarray(data), 48)))
+    assert_matches_jax(out, ref["shake256"], "shake256")
     w = keccak.shake128_words(t, 6).numpy()
     np.testing.assert_array_equal(w, keccak.shake128(t, 24).numpy().view("<u4").astype(np.int64))
-    np.testing.assert_array_equal(
-        keccak.shake256_words(t, 6).numpy(),
-        np.asarray(jkeccak.shake256_words(jnp.asarray(data), 6)).astype(np.int64))
+    assert_matches_jax(keccak.shake256_words(t, 6), ref["shake256_words"], "shake256_words")
 
 
 def test_permutation_matches_jax():
     st = np.random.default_rng(7).integers(0, 1 << 32, size=(4, 25, 2), dtype=np.int64).astype(np.uint32)
-    exp = np.asarray(jkeccak.keccak_f1600(jnp.asarray(st))).astype(np.uint64)
+    exp = jax_ref("keccak_permutation")["f1600"].astype(np.uint64)
     lanes = (st[..., 0].astype(np.uint64) | (st[..., 1].astype(np.uint64) << np.uint64(32))).view(np.int64)
     got = keccak.keccak_f1600_plain(torch.from_numpy(lanes.copy())).numpy().view(np.uint64)
     np.testing.assert_array_equal(got, exp[..., 0] | (exp[..., 1] << np.uint64(32)))

@@ -1,16 +1,17 @@
 """PyTorch port: ExpandMask, its int8 limb form (the mask kernel's layout)
-and SampleInBall vs the JAX package, byte-equal."""
+and SampleInBall vs the JAX package (its outputs recorded in
+`tests/jax_reference.py`), byte-equal."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dilithium_tpu.ops import sampling as jsampling
 from dilithium_tpu_torch import params
 from dilithium_tpu_torch.ops import sampling
+from jax_reference import assert_matches_jax, jax_ref
 
 LEVELS = [2, 3, 5]
+W = 5
 
 
 def _u8(rng, shape):
@@ -21,20 +22,27 @@ def _eq(got, exp):
     np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(exp).astype(np.int64))
 
 
+def _mask_inputs(level):
+    """-> (rhoprime uint8 [W, 64], kappa uint32 [W]), one kappa at the
+    16-bit wrap of the nonces."""
+    rng = np.random.default_rng(20 + level)
+    rp = _u8(rng, (W, 64))
+    kappa = (rng.integers(0, 20000, size=W) * params.get_params(level).L).astype(np.uint32)
+    kappa[0] = 65535  # nonces wrap at 16 bits
+    return rp, kappa
+
+
 @pytest.mark.parametrize("level", LEVELS)
 def test_expand_mask_and_limbs_match_jax(level):
     p = params.get_params(level)
-    rng = np.random.default_rng(20 + level)
-    W = 5
-    rp = _u8(rng, (W, 64))
-    kappa = (rng.integers(0, 20000, size=W) * p.L).astype(np.uint32)
-    kappa[0] = 65535  # nonces wrap at 16 bits
+    rp, kappa = _mask_inputs(level)
+    ref = jax_ref("mask_ball_expand_mask")
     y = sampling.expand_mask(torch.from_numpy(rp), torch.from_numpy(kappa.astype(np.int32)), p)
-    _eq(y, jsampling.expand_mask(jnp.asarray(rp), jnp.asarray(kappa), p))
+    assert_matches_jax(y, ref[f"y {level}"], "y")
     limbs = sampling.expand_mask_limbs(torch.from_numpy(rp), torch.from_numpy(kappa.astype(np.int32)), p)
     assert limbs.dtype == torch.int8 and limbs.shape == (3, W, p.L * 256)
-    limbs_j = np.asarray(jsampling.expand_mask_limbs(jnp.asarray(rp), jnp.asarray(kappa), p))  # [3, 256, L, W]
-    _eq(limbs, limbs_j.transpose(0, 3, 2, 1).reshape(3, W, p.L * 256))
+    # JAX's [3, 256, L, W], recorded as [3, W, L*256]
+    assert_matches_jax(limbs, ref[f"limbs {level}"], "limbs")
 
 
 @pytest.mark.parametrize("level", LEVELS)
@@ -42,9 +50,9 @@ def test_sample_in_ball_matches_jax(level):
     p = params.get_params(level)
     c_tilde = _u8(np.random.default_rng(30 + level), (6, 32))
     c, ok = sampling.sample_in_ball(torch.from_numpy(c_tilde), p)
-    c_j, ok_j = jsampling.sample_in_ball(jnp.asarray(c_tilde), p)
-    _eq(c, c_j)
-    _eq(ok, ok_j)
+    ref = jax_ref("mask_ball_sample_in_ball")
+    assert_matches_jax(c, ref[f"c {level}"], "c")
+    assert_matches_jax(ok, ref[f"ok {level}"], "ok")
     assert int((c != 0).sum(dim=-1).min()) == p.tau
 
 

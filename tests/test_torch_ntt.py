@@ -1,20 +1,18 @@
 """PyTorch port: NTT, inverse NTT and matvec vs the JAX package's roll form,
-its Pallas kernel (interpret mode on the CPU) and the C++ oracle."""
+its Pallas kernel (interpret mode on the CPU; recorded in
+`tests/jax_reference.py`) and the C++ oracle."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from jax.experimental.pallas import tpu as pltpu
-
 from dilithium_tpu import oracle
-from dilithium_tpu.ops import ntt as jntt
-from dilithium_tpu.ops import ntt_pallas
 from dilithium_tpu_torch import params
 from dilithium_tpu_torch.ops import ntt
+from jax_reference import assert_matches_jax, jax_ref
 
 Q = params.Q
+SHAPES = [(1,), (6,), (3, 5)]
 
 
 def _rand(seed, shape):
@@ -29,29 +27,28 @@ def _eq(got, exp):
     np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(exp).astype(np.int64))
 
 
-@pytest.mark.parametrize("shape", [(1,), (6,), (3, 5)])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_forward_matches_jax(shape):
     x = _rand(1, shape)
     got = ntt.ntt(_t(x))
     assert got.shape == x.shape and got.dtype == torch.int32
-    _eq(got, jntt.ntt(jnp.asarray(x)))
+    assert_matches_jax(got, jax_ref("ntt_forward")[str(shape)], f"ntt {shape}")
 
 
 @pytest.mark.parametrize("from_product", [True, False])
 def test_inverse_matches_jax(from_product):
     x = _rand(2, (6,))
-    _eq(ntt.invntt(_t(x), from_product=from_product), jntt.invntt(jnp.asarray(x), from_product=from_product))
+    assert_matches_jax(ntt.invntt(_t(x), from_product=from_product), jax_ref("ntt_inverse")[str(from_product)],
+                       f"invntt from_product={from_product}")
 
 
 def test_matches_pallas_kernel_interpreted():
-    # ~30 s per interpreted call on the CPU: forward, and the inverse with
-    # the scale keygen uses (the two scalings differ in one constant)
+    # forward, and the inverse with the scale keygen uses (the two scalings
+    # differ in one constant)
     x = _rand(3, (4,))
-    with pltpu.force_tpu_interpret_mode():
-        fwd = ntt_pallas.ntt(jnp.asarray(x))
-        inv = ntt_pallas.invntt(jnp.asarray(x), from_product=True)
-    _eq(ntt.ntt(_t(x)), fwd)
-    _eq(ntt.invntt(_t(x), from_product=True), inv)
+    ref = jax_ref("ntt_pallas_interpreted")
+    assert_matches_jax(ntt.ntt(_t(x)), ref["ntt"], "ntt")
+    assert_matches_jax(ntt.invntt(_t(x), from_product=True), ref["invntt"], "invntt")
 
 
 def test_matches_oracle():
@@ -67,7 +64,7 @@ def test_matvec_matches_jax(level):
     p = params.get_params(level)
     a_hat = _rand(10 + level, (2, p.K, p.L))
     s_hat = _rand(20 + level, (2, p.L))
-    _eq(ntt.matvec(_t(a_hat), _t(s_hat)), jntt.matvec(jnp.asarray(a_hat), jnp.asarray(s_hat)))
+    assert_matches_jax(ntt.matvec(_t(a_hat), _t(s_hat)), jax_ref("ntt_matvec")[str(level)], f"level {level}")
 
 
 def test_roundtrip_and_plain_forms():

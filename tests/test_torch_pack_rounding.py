@@ -1,15 +1,14 @@
 """PyTorch port: key / signature codecs and rounding vs the JAX package at
-levels 2/3/5, byte-equal."""
+levels 2/3/5 (its outputs recorded in `tests/jax_reference.py`),
+byte-equal."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dilithium_tpu.ops import pack as jpack
-from dilithium_tpu.ops import rounding as jrounding
 from dilithium_tpu_torch import params
 from dilithium_tpu_torch.ops import pack, reduce, rounding
+from jax_reference import assert_matches_jax, jax_ref
 
 Q = params.Q
 LEVELS = [2, 3, 5]
@@ -27,10 +26,6 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _eq(got: torch.Tensor, exp) -> None:
-    np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(exp).astype(np.int64))
-
-
 def _hints(rng, p, batch):
     """0/1 [batch, K, 256] with total weight <= omega per row."""
     h = np.zeros((batch, p.K * 256), dtype=np.uint32)
@@ -40,73 +35,95 @@ def _hints(rng, p, batch):
     return h.reshape(batch, p.K, 256)
 
 
-@pytest.mark.parametrize("level", LEVELS)
-def test_codecs_match_jax(level):
+def _codec_inputs(level):
+    """Random coefficient vectors in every codec's range, B = 3."""
     p = params.get_params(level)
     rng = _rng(40 + level)
     B = 3
     eta = rng.integers(-p.eta, p.eta + 1, size=(B, p.L, 256)).astype(np.int32)
-    s_canon = (eta % Q).astype(np.uint32)
-    _eq(pack.pack_eta(_t(s_canon), p), jpack.pack_eta(jnp.asarray(s_canon), p))
-    t1 = rng.integers(0, 1024, size=(B, p.K, 256)).astype(np.uint32)
-    _eq(pack.pack_t1(_t(t1)), jpack.pack_t1(jnp.asarray(t1)))
-    t0 = rng.integers(-(1 << 12) + 1, (1 << 12) + 1, size=(B, p.K, 256)).astype(np.int32)
-    _eq(pack.pack_t0(_t(t0)), jpack.pack_t0(jnp.asarray(t0)))
-    z = (rng.integers(-p.gamma1 + 1, p.gamma1 + 1, size=(B, p.L, 256)) % Q).astype(np.uint32)
-    _eq(pack.pack_z(_t(z), p), jpack.pack_z(jnp.asarray(z), p))
+    x = {"s_canon": (eta % Q).astype(np.uint32)}
+    x["t1"] = rng.integers(0, 1024, size=(B, p.K, 256)).astype(np.uint32)
+    x["t0"] = rng.integers(-(1 << 12) + 1, (1 << 12) + 1, size=(B, p.K, 256)).astype(np.int32)
+    x["z"] = (rng.integers(-p.gamma1 + 1, p.gamma1 + 1, size=(B, p.L, 256)) % Q).astype(np.uint32)
     w1 = rng.integers(0, 1 << p.w1_bits, size=(B, p.K, 256)).astype(np.uint32)
-    w1 = np.minimum(w1, 43) if p.w1_bits == 6 else w1
-    _eq(pack.pack_w1(_t(w1), p), jpack.pack_w1(jnp.asarray(w1), p))
-    h = _hints(rng, p, B)
-    _eq(pack.pack_hints(_t(h), p), jpack.pack_hints(jnp.asarray(h), p))
+    x["w1"] = np.minimum(w1, 43) if p.w1_bits == 6 else w1
+    x["h"] = _hints(rng, p, B)
+    return x
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_codecs_match_jax(level):
+    p = params.get_params(level)
+    x = {k: _t(v) for k, v in _codec_inputs(level).items()}
+    ref = jax_ref("pack_rounding_codecs")
+    for name, got in (("eta", pack.pack_eta(x["s_canon"], p)), ("t1", pack.pack_t1(x["t1"])),
+                      ("t0", pack.pack_t0(x["t0"])), ("z", pack.pack_z(x["z"], p)),
+                      ("w1", pack.pack_w1(x["w1"], p)), ("hints", pack.pack_hints(x["h"], p))):
+        assert_matches_jax(got, ref[f"{name} {level}"], name)
+
+
+def _container_inputs(level):
+    """The parts of two keys and two signatures."""
+    p = params.get_params(level)
+    rng = _rng(50 + level)
+    B = 2
+    x = dict(zip(("rho", "key", "tr", "c_tilde"), (rng.integers(0, 256, size=(B, 32), dtype=np.uint8)
+                                                   for _ in range(4))))
+    x["s1"] = (rng.integers(-p.eta, p.eta + 1, size=(B, p.L, 256)) % Q).astype(np.uint32)
+    x["s2"] = (rng.integers(-p.eta, p.eta + 1, size=(B, p.K, 256)) % Q).astype(np.uint32)
+    x["t0"] = rng.integers(-(1 << 12) + 1, (1 << 12) + 1, size=(B, p.K, 256)).astype(np.int32)
+    x["t1"] = rng.integers(0, 1024, size=(B, p.K, 256)).astype(np.uint32)
+    x["z"] = (rng.integers(-p.gamma1 + 1, p.gamma1 + 1, size=(B, p.L, 256)) % Q).astype(np.uint32)
+    x["h"] = _hints(rng, p, B)
+    return x
 
 
 @pytest.mark.parametrize("level", LEVELS)
 def test_key_and_sig_containers_match_jax(level):
     p = params.get_params(level)
-    rng = _rng(50 + level)
-    B = 2
-    rho, key, tr, c_tilde = (rng.integers(0, 256, size=(B, 32), dtype=np.uint8) for _ in range(4))
-    s1 = (rng.integers(-p.eta, p.eta + 1, size=(B, p.L, 256)) % Q).astype(np.uint32)
-    s2 = (rng.integers(-p.eta, p.eta + 1, size=(B, p.K, 256)) % Q).astype(np.uint32)
-    t0 = rng.integers(-(1 << 12) + 1, (1 << 12) + 1, size=(B, p.K, 256)).astype(np.int32)
-    t1 = rng.integers(0, 1024, size=(B, p.K, 256)).astype(np.uint32)
+    x = {k: _t(v) for k, v in _container_inputs(level).items()}
+    ref = jax_ref("pack_rounding_containers")
 
-    pk = pack.pack_pk(_t(rho), _t(t1), p)
-    _eq(pk, jpack.pack_pk(jnp.asarray(rho), jnp.asarray(t1), p))
-    sk = pack.pack_sk(*map(_t, (rho, key, tr, s1, s2, t0)), p)
-    sk_j = jpack.pack_sk(*map(jnp.asarray, (rho, key, tr, s1, s2, t0)), p)
-    _eq(sk, sk_j)
-    for got, exp in zip(pack.unpack_sk(sk, p), jpack.unpack_sk(sk_j, p)):
-        _eq(got, exp)
+    pk = pack.pack_pk(x["rho"], x["t1"], p)
+    assert_matches_jax(pk, ref[f"pk {level}"], "pk")
+    sk = pack.pack_sk(*(x[k] for k in ("rho", "key", "tr", "s1", "s2", "t0")), p)
+    assert_matches_jax(sk, ref[f"sk {level}"], "sk")
+    for i, got in enumerate(pack.unpack_sk(sk, p)):
+        assert_matches_jax(got, ref[f"unpack_sk {level} {i}"], f"unpack_sk part {i}")
 
-    z = (rng.integers(-p.gamma1 + 1, p.gamma1 + 1, size=(B, p.L, 256)) % Q).astype(np.uint32)
-    h = _hints(rng, p, B)
-    sig = pack.pack_sig(_t(c_tilde), _t(z), _t(h).to(torch.uint8), p)
-    assert sig.shape == (B, p.sig_bytes)
-    _eq(sig, jpack.pack_sig(jnp.asarray(c_tilde), jnp.asarray(z), jnp.asarray(h), p))
+    sig = pack.pack_sig(x["c_tilde"], x["z"], x["h"].to(torch.uint8), p)
+    assert sig.shape == (2, p.sig_bytes)
+    assert_matches_jax(sig, ref[f"sig {level}"], "sig")
+
+
+def _rounding_case(level):
+    """-> (a canonical [8, 256] with the edges, a0 centered [8, 256], cent
+    centered [8, 2, 256] around the norm bound, cent canonical)."""
+    p = params.get_params(level)
+    rng = _rng(60 + level)
+    a = rng.integers(0, Q, size=(8, 256), dtype=np.int64).astype(np.uint32)
+    a[0, :4] = [0, Q - 1, (Q - 1) // 2, p.gamma2]
+    a0 = rng.integers(-2 * p.gamma2, 2 * p.gamma2, size=(8, 256)).astype(np.int32)
+    a0[0, :3] = [-p.gamma2, p.gamma2, -p.gamma2 - 1]
+    bound = p.gamma2 - p.beta
+    cent = rng.integers(-bound - 3, bound + 3, size=(8, 2, 256)).astype(np.int32)
+    return a, a0, cent, (cent % Q).astype(np.uint32)  # the JAX function centers uint32 itself
 
 
 @pytest.mark.parametrize("level", LEVELS)
 def test_rounding_matches_jax(level):
     p = params.get_params(level)
-    rng = _rng(60 + level)
-    a = rng.integers(0, Q, size=(8, 256), dtype=np.int64).astype(np.uint32)
-    a[0, :4] = [0, Q - 1, (Q - 1) // 2, p.gamma2]
-    for got, exp in zip(rounding.power2round(_t(a)), jrounding.power2round(jnp.asarray(a))):
-        _eq(got, exp)
+    a, a0, cent, canon = _rounding_case(level)
+    ref = jax_ref("pack_rounding_rounding")
+    for i, got in enumerate(rounding.power2round(_t(a))):
+        assert_matches_jax(got, ref[f"power2round {level} {i}"], f"power2round {i}")
     w1, w0 = rounding.decompose(_t(a), p)
-    w1_j, w0_j = jrounding.decompose(jnp.asarray(a), p)
-    _eq(w1, w1_j)
-    _eq(w0, w0_j)
-    a0 = rng.integers(-2 * p.gamma2, 2 * p.gamma2, size=(8, 256)).astype(np.int32)
-    a0[0, :3] = [-p.gamma2, p.gamma2, -p.gamma2 - 1]
-    _eq(rounding.make_hint(_t(a0), w1, p), jrounding.make_hint(jnp.asarray(a0), w1_j, p))
+    assert_matches_jax(w1, ref[f"decompose {level} 0"], "decompose w1")
+    assert_matches_jax(w0, ref[f"decompose {level} 1"], "decompose w0")
     bound = p.gamma2 - p.beta
-    cent = rng.integers(-bound - 3, bound + 3, size=(8, 2, 256)).astype(np.int32)
-    _eq(rounding.norm_exceeds(_t(cent), bound), jrounding.norm_exceeds(jnp.asarray(cent), bound))
-    _eq(rounding.norm_exceeds(_t(cent), bound, dim=(-2, -1)),
-        jrounding.norm_exceeds(jnp.asarray(cent), bound, axis=(-2, -1)))
-    canon = (cent % Q).astype(np.uint32)  # the JAX function centers uint32 itself
-    _eq(rounding.norm_exceeds(reduce.center(_t(canon)), bound, dim=(-2, -1)),
-        jrounding.norm_exceeds(jnp.asarray(canon), bound, axis=(-2, -1)))
+    assert_matches_jax(rounding.make_hint(_t(a0), w1, p), ref[f"make_hint {level}"], "make_hint")
+    assert_matches_jax(rounding.norm_exceeds(_t(cent), bound), ref[f"norm {level}"], "norm_exceeds")
+    assert_matches_jax(rounding.norm_exceeds(_t(cent), bound, dim=(-2, -1)), ref[f"norm2 {level}"],
+                       "norm_exceeds over (-2, -1)")
+    assert_matches_jax(rounding.norm_exceeds(reduce.center(_t(canon)), bound, dim=(-2, -1)),
+                       ref[f"norm_canon {level}"], "norm_exceeds of canonical input")

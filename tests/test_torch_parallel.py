@@ -32,6 +32,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEVEL = 2
 B = 8
 N_KEYS = 3
+# limits of the subprocess waits, about three times their time in a loaded
+# tier-1 run: a hang fails its own test and leaves the suite its clock
+UNEQUAL_TIMEOUT = 20
+LAUNCHER_TIMEOUT = 40
 
 
 def _env() -> dict:
@@ -130,10 +134,14 @@ def test_services_in_a_world_of_one(tmp_path):
     procs = [subprocess.Popen([sys.executable, "-c", _UNEQUAL, str(rank), f"file://{tmp_path / 'store2'}"],
                               cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for rank in range(2)]
-    for proc in procs:
-        out, err = proc.communicate(timeout=300)
-        assert proc.returncode == 0, err[-3000:]
-        assert "raised: local shards differ in size across ranks (2 to 3 rows" in out
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=UNEQUAL_TIMEOUT)
+            assert proc.returncode == 0, err[-3000:]
+            assert "raised: local shards differ in size across ranks (2 to 3 rows" in out
+    finally:
+        for proc in procs:
+            proc.kill()
 
 
 def _free_port() -> int:
@@ -166,15 +174,21 @@ def test_two_process_launcher(tmp_path):
     _, sk_o = oracle.keygen(LEVEL, seed)
     sig_o, att_o = oracle.sign(LEVEL, np.repeat(sk_o, B, axis=0), mus)
 
-    for name, pair in procs.items():
-        reports = []
-        for proc, _ in pair:
-            out, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, f"{name}: launcher rc={proc.returncode}\n{out}\n{err[-3000:]}"
-            reports.append(json.loads(out.strip().splitlines()[-1]))
-        for pid, r in enumerate(reports):
-            assert (r["process_id"], r["num_processes"], r["local_batch"], r["global_batch"]) == (pid, 2, B // 2, B)
-            assert r["signed"] == B and r["attempts"] == int(att_o.sum())
-            assert r["verified"] == (B if name == "keys" else None)
-        got = np.concatenate([np.load(path) for _, path in pair])
-        np.testing.assert_array_equal(got, sig_o)
+    try:
+        for name, pair in procs.items():
+            reports = []
+            for proc, _ in pair:
+                out, err = proc.communicate(timeout=LAUNCHER_TIMEOUT)
+                assert proc.returncode == 0, f"{name}: launcher rc={proc.returncode}\n{out}\n{err[-3000:]}"
+                reports.append(json.loads(out.strip().splitlines()[-1]))
+            for pid, r in enumerate(reports):
+                assert (r["process_id"], r["num_processes"], r["local_batch"],
+                        r["global_batch"]) == (pid, 2, B // 2, B)
+                assert r["signed"] == B and r["attempts"] == int(att_o.sum())
+                assert r["verified"] == (B if name == "keys" else None)
+            got = np.concatenate([np.load(path) for _, path in pair])
+            np.testing.assert_array_equal(got, sig_o)
+    finally:
+        for pair in procs.values():
+            for proc, _ in pair:
+                proc.kill()

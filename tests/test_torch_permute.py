@@ -4,16 +4,18 @@ JAX package's permutation, byte-equal.
 JAX's `keccak.keccak_f1600` takes uint32 [..., 25, 2] (low and high half
 of each lane); `keccak._f1600_soa` is the body that the Pallas kernel
 `keccak_pallas.f1600_folded` runs on lane-half planes. The port takes
-int64 lanes [B, 25], or planes [25, B].
+int64 lanes [B, 25], or planes [25, B]. The JAX package's outputs are
+recorded in `tests/jax_reference.py`.
 """
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dilithium_tpu.ops import keccak as jkeccak
 from dilithium_tpu_torch.ops import keccak
+from jax_reference import assert_matches_jax, jax_ref
+
+BATCHES = [1, 130, 1000]
 
 
 def _states(b: int, seed: int) -> np.ndarray:
@@ -26,16 +28,14 @@ def _to_lanes(halves: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(halves, copy=True).view(np.int64)[..., 0])
 
 
-@pytest.mark.parametrize("b", [1, 130, 1000])
+@pytest.mark.parametrize("b", BATCHES)
 def test_matches_jax_permutation_and_soa_body(b):
     st = _states(b, 100 + b)
     got = keccak.keccak_f1600(_to_lanes(st))
-    exp = np.asarray(jkeccak.keccak_f1600(jnp.asarray(st)))
-    assert torch.equal(got, _to_lanes(exp))
-    lo, hi = jkeccak._f1600_soa([jnp.asarray(st[:, k, 0]) for k in range(25)],
-                                [jnp.asarray(st[:, k, 1]) for k in range(25)])
-    soa = np.stack([np.stack([np.asarray(lo[k]), np.asarray(hi[k])], axis=-1) for k in range(25)], axis=1)
-    assert torch.equal(got, _to_lanes(soa))
+    halves = got.numpy().view(np.uint32).reshape(b, 25, 2)  # JAX's form, little-endian halves
+    ref = jax_ref("permute_f1600")
+    assert_matches_jax(halves, ref[f"f1600 {b}"], "keccak_f1600")
+    assert_matches_jax(halves, ref[f"soa {b}"], "_f1600_soa")
 
 
 def test_plane_form_equals_batch_form_and_rejects_bad_shapes():

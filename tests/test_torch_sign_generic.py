@@ -4,22 +4,20 @@ and the lockstep (`sign`, `sign_expanded`) and stream (`sign_stream`,
 `sign_stream_keys`) signers against the C++ oracle at levels 2, 3 and 5,
 in bytes and attempts.
 
-Three tests: the JAX comparison (one jitted `expand_sk`, one eager
-`_sign_attempt` at two lanes; the JAX side is keyed from oracle bytes so
-that its keygen is not compiled), the signers against the oracle, and the
-stream signers' default window (the loop stubbed, no signing)."""
+Three tests: the JAX comparison (`expand_sk` and one `_sign_attempt` at
+two lanes, keyed from oracle bytes; JAX's outputs recorded in
+`tests/jax_reference.py`), the signers against the oracle, and the stream
+signers' default window (the loop stubbed, no signing)."""
 
 import hashlib
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dilithium_tpu import params as jparams
-from dilithium_tpu import scheme as jscheme
 from dilithium_tpu_torch import api, convert, mxu, oracle, params, scheme
 from dilithium_tpu_torch.ops import ntt, pack
+from jax_reference import assert_matches_jax, jax_ref
 
 RNG_SEED = 707
 
@@ -43,14 +41,13 @@ def _negacyclic(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.array([(out[k] - out[k + 256]) % params.Q for k in range(256)], dtype=np.int64)
 
 
-def test_expand_sk_and_sign_attempt_match_jax():
-    """Level 2: the port's ExpandedKey equals JAX's `expand_sk` (also
-    carried over by `convert`), and one `_sign_attempt` over two lanes, one
-    accepting at a nonzero kappa and one rejecting at kappa 0, gives JAX's
-    c_tilde, z, h and accept; the accepting lane packs to the oracle's
-    signature. `ntt.poly_mul` equals the schoolbook product."""
+def _attempt_inputs():
+    """Level 2: an oracle key and two lanes, one accepting at a nonzero
+    kappa and one rejecting at kappa 0. -> (rng for what follows, sk uint8
+    [sk_bytes], mus uint8 [2, 64], kappa uint32 [2], rhoprime uint8 [2, 64],
+    the oracle's signature of lane 0)."""
     level = 2
-    p, jp = params.get_params(level), jparams.get_params(level)
+    p = params.get_params(level)
     rng = np.random.default_rng(RNG_SEED)
     _, sk = oracle.keygen(level, rng.integers(0, 256, (1, 32), dtype=np.uint8))
     pool = rng.integers(0, 256, (16, 64), dtype=np.uint8)
@@ -62,24 +59,34 @@ def test_expand_sk_and_sign_attempt_match_jax():
     key = sk[0, 32:64].tobytes()
     rhoprime = np.stack([np.frombuffer(hashlib.shake_256(key + m.tobytes()).digest(64), dtype=np.uint8)
                          for m in mus])
+    return rng, sk[0], mus, kappa, rhoprime, sig_o[acc_row]
 
-    ek_j = jscheme.expand_sk(jnp.asarray(sk[0]), jp)
-    ek = scheme.expand_sk(torch.from_numpy(sk[0]), p)
-    carried = convert.expanded_key_from_numpy(*(np.asarray(x) for x in ek_j), device="cpu")
-    for field, mine, ref, conv in zip(scheme.ExpandedKey._fields, ek, ek_j, carried):
+
+def test_expand_sk_and_sign_attempt_match_jax():
+    """Level 2: the port's ExpandedKey equals JAX's `expand_sk` (also
+    carried over by `convert`), and one `_sign_attempt` over two lanes, one
+    accepting at a nonzero kappa and one rejecting at kappa 0, gives JAX's
+    c_tilde, z, h and accept; the accepting lane packs to the oracle's
+    signature. `ntt.poly_mul` equals the schoolbook product."""
+    p = params.get_params(2)
+    rng, sk, mus, kappa, rhoprime, sig_o = _attempt_inputs()
+    ref = jax_ref("sign_generic_attempt")
+
+    ek = scheme.expand_sk(torch.from_numpy(sk), p)
+    for field, mine in zip(scheme.ExpandedKey._fields, ek):
+        assert_matches_jax(mine, ref[f"ek.{field}"], field)
+    carried = convert.expanded_key_from_numpy(*(x.numpy() for x in ek), device="cpu")
+    for field, mine, conv in zip(scheme.ExpandedKey._fields, ek, carried):
         assert mine.dtype == conv.dtype == (torch.uint8 if field in ("key", "tr") else torch.int32), field
-        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref).astype(np.int64), err_msg=field)
         assert torch.equal(mine, conv), field
 
-    out_j = jscheme._sign_attempt(ek_j.a_hat, ek_j.s1_hat, ek_j.s2_hat, ek_j.t0_hat, jnp.asarray(mus),
-                                  jnp.asarray(rhoprime), jnp.asarray(kappa), jp)
     out = scheme._sign_attempt(ek.a_hat, ek.s1_hat, ek.s2_hat, ek.t0_hat, torch.from_numpy(mus),
                                torch.from_numpy(rhoprime), torch.from_numpy(kappa.astype(np.int64)), p)
-    for name, mine, ref in zip(("c_tilde", "z", "h", "accept"), out, out_j):
-        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref), err_msg=name)
+    for name, mine in zip(("c_tilde", "z", "h", "accept"), out):
+        assert_matches_jax(mine, ref[f"attempt.{name}"], name)
     assert out[3].tolist() == [True, False]
     sig = pack.pack_sig(out[0][:1], out[1][:1], out[2][:1], p)
-    np.testing.assert_array_equal(sig.numpy()[0], sig_o[acc_row])
+    np.testing.assert_array_equal(sig.numpy()[0], sig_o)
 
     polys = rng.integers(0, params.Q, (2, 3, 256)).astype(np.int32)
     got = ntt.poly_mul(torch.from_numpy(polys[0]), torch.from_numpy(polys[1])).numpy()

@@ -1,54 +1,49 @@
 """PyTorch port, the one-key signing slice as a whole: keygen ->
-build_operators -> sign_stream_mxu, byte-equal to the JAX package and to
-the C++ oracle."""
+build_operators -> sign_stream_mxu, byte-equal to the JAX package (its
+outputs recorded in `tests/jax_reference.py`) and to the C++ oracle."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dilithium_tpu import mxu as jmxu
 from dilithium_tpu import oracle
-from dilithium_tpu import scheme as jscheme
 from dilithium_tpu_torch import convert, mxu, params, scheme
+from jax_reference import assert_matches_jax, jax_ref
 
 RNG_SEED = 77
 
 
-@pytest.fixture(scope="module")
-def level2():
-    """The shapes tests/test_mxu.py compiles: level 2, 10 mu, window 4."""
-    p = params.get_params(2)
+def _level2_inputs():
+    """The shapes tests/test_mxu.py compiles: level 2, 10 mu (window 4).
+    -> (seed uint8 [32], mus uint8 [10, 64])."""
     rng = np.random.default_rng(RNG_SEED)
     seed = rng.integers(0, 256, size=32, dtype=np.uint8)
-    mus = rng.integers(0, 256, size=(10, 64), dtype=np.uint8)
-    kp_j = jscheme.keygen(jnp.asarray(seed), p)
-    ops_j = jmxu.build_operators(kp_j.sk, p)
-    res_j = jmxu.sign_stream_mxu(ops_j, jnp.asarray(mus), p, window=4, max_rounds=512)
-    jax_np = {
-        "kp": [np.asarray(x) for x in kp_j],
-        "ops": [np.asarray(x) for x in ops_j],
-        "res": [np.asarray(x) for x in res_j],
-    }
-    return p, seed, mus, jax_np
+    return seed, rng.integers(0, 256, size=(10, 64), dtype=np.uint8)
+
+
+@pytest.fixture(scope="module")
+def level2():
+    return (params.get_params(2), *_level2_inputs(), jax_ref("slice_level2"))
 
 
 def _eq(got: torch.Tensor, exp: np.ndarray, what: str):
     np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(exp).astype(np.int64), err_msg=what)
 
 
+def _match(fields, got, j, prefix):
+    for name, g in zip(fields, got):
+        assert_matches_jax(g, j[f"{prefix}.{name}"], name)
+
+
 def test_keygen_matches_jax(level2):
     p, seed, _, j = level2
-    kp = scheme.keygen(torch.from_numpy(seed), p)
-    for name, got, exp in zip(scheme.KeyPair._fields, kp, j["kp"]):
-        _eq(got, exp, name)
+    _match(scheme.KeyPair._fields, scheme.keygen(torch.from_numpy(seed), p), j, "kp")
 
 
 def test_build_operators_matches_jax(level2):
     p, seed, _, j = level2
     ops = mxu.build_operators(scheme.keygen(torch.from_numpy(seed), p).sk, p)
-    for name, got, exp in zip(mxu.KeyOperators._fields, ops, j["ops"]):
-        _eq(got, exp, name)
+    _match(mxu.KeyOperators._fields, ops, j, "ops")
     assert ops.wy_cat.t().is_contiguous() and ops.c_cat.t().is_contiguous()
 
 
@@ -57,21 +52,24 @@ def test_sign_stream_matches_jax(level2):
     ops = mxu.build_operators(scheme.keygen(torch.from_numpy(seed), p).sk, p)
     res = mxu.sign_stream_mxu(ops, torch.from_numpy(mus), p, window=4, max_rounds=512)
     assert bool(res.ok.all())
-    for name, got, exp in zip(("sig", "attempts", "ok"), res[:3], j["res"]):
-        _eq(got, exp, name)
+    _match(("sig", "attempts", "ok"), res[:3], j, "res")
 
 
 def test_converted_state_signs_like_jax(level2):
-    """JAX's keys and operators, carried over as numpy, drive the port."""
-    p, _, mus, j = level2
-    kp = convert.keypair_from_numpy(*j["kp"], device="cpu")
-    _eq(kp.sk, j["kp"][1], "sk")
+    """JAX's keys and operators, carried over as numpy, drive the port:
+    the port's own, once they are matched with JAX's bytes."""
+    p, seed, mus, j = level2
+    kp_t = scheme.keygen(torch.from_numpy(seed), p)
+    ops_t = mxu.build_operators(kp_t.sk, p)
+    _match(scheme.KeyPair._fields, kp_t, j, "kp")
+    _match(mxu.KeyOperators._fields, ops_t, j, "ops")
+    kp = convert.keypair_from_numpy(*(x.numpy() for x in kp_t), device="cpu")
+    assert_matches_jax(kp.sk, j["kp.sk"], "sk")
     assert kp.s1.dtype == torch.int32 and kp.ok.dtype == torch.bool
-    ops = convert.key_operators_from_numpy(*j["ops"], device="cpu")
+    ops = convert.key_operators_from_numpy(*(x.numpy() for x in ops_t), device="cpu")
     signer = mxu.MxuSigner(ops, p, window=4, max_rounds=512)
     res = signer(torch.from_numpy(mus))
-    for name, got, exp in zip(("sig", "attempts", "ok"), res[:3], j["res"]):
-        _eq(got, exp, name)
+    _match(("sig", "attempts", "ok"), res[:3], j, "res")
 
 
 @pytest.mark.parametrize("level,window", [(2, 4), (3, 3), (5, 4), (2, 7)])

@@ -5,20 +5,30 @@ dense-operator verifier at level 2 and the C++ oracle at levels 2, 3 and 5,
 on valid signatures and on every corruption class of
 `tools/verify_cases.py`.
 
-Two tests: the JAX comparison (one jitted JAX graph pair) and the other
-levels against the oracle alone."""
+Two tests: the JAX comparison (JAX's outputs recorded in
+`tests/jax_reference.py`) and the other levels against the oracle alone."""
 
 import numpy as np
-import jax.numpy as jnp
+import pytest
 import torch
 
-from dilithium_tpu import mxu as jmxu
-from dilithium_tpu import params as jparams
 from dilithium_tpu_torch import convert, mxu, oracle, params, scheme
 from dilithium_tpu_torch.tools import verify_cases
+from jax_reference import assert_matches_jax, jax_ref
 
 RNG_SEED = 616
 N_VALID = 8
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tensors here are small, and beside other
+    test workers torch's default thread pool spends most of its time
+    waiting for cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _batch(level: int, seed: int):
@@ -58,16 +68,21 @@ def _check_against_oracle(level, pk, sig, mu, names, got):
 
 def test_verify_matches_jax_level2():
     """The port's verify operators equal JAX's `build_verify_operators`
-    byte for byte (carried over by `convert`), and its three verifiers give
-    JAX's `verify_mxu` bool vector and the oracle's."""
+    byte for byte (JAX's limb form [3, rows, K*256], carried over by
+    `convert`), and its three verifiers give JAX's `verify_mxu` bool vector
+    and the oracle's."""
     level = 2
-    p, jp = params.get_params(level), jparams.get_params(level)
+    p = params.get_params(level)
     pk, sk, sig, mu, names = _batch(level, RNG_SEED)
+    ref = jax_ref("verify_level2")
 
-    vops_j = jmxu.build_verify_operators(jnp.asarray(pk), jp)
-    ok_j = np.asarray(jmxu.verify_mxu(vops_j, jnp.asarray(sig), jnp.asarray(mu), jp))
-    carried = convert.verify_operators_from_numpy(*(np.asarray(x) for x in vops_j), device="cpu")
     mine = mxu.build_verify_operators(torch.from_numpy(pk), p)
+    wz_limbs, t1_limbs = (m.reshape(m.shape[0], 3, -1).permute(1, 0, 2) for m in (mine.wz_cat, mine.t1_cat))
+    for name, got in (("wz_limbs", wz_limbs), ("t1_limbs", t1_limbs), ("tr", mine.tr)):
+        assert_matches_jax(got, ref[f"vops.{name}"], name)
+    ok_j = ref["ok"]
+    carried = convert.verify_operators_from_numpy(wz_limbs.numpy(), t1_limbs.numpy(), mine.tr.numpy(),
+                                                  device="cpu")
     for field, a, b in zip(mxu.VerifyOperators._fields, mine, carried):
         assert a.dtype == b.dtype and torch.equal(a, b), field
     assert mine.wz_cat.shape == (p.L * 256, 3 * p.K * 256) and mine.t1_cat.shape == (256, 3 * p.K * 256)

@@ -1,27 +1,20 @@
 """PyTorch port, the verify path's codecs and rounding: `unpack_t1`,
 `unpack_z`, `unpack_pk`, `unpack_hints`, `unpack_sig`, `highbits`,
 `lowbits` and `use_hint`, equal to the JAX package's eager functions at
-levels 2, 3 and 5, on valid encodings and on malformed hint blocks.
+levels 2, 3 and 5 (their outputs recorded in `tests/jax_reference.py`), on
+valid encodings and on malformed hint blocks.
 
 Two tests, each looping over the levels inside its body."""
 
 import numpy as np
-import jax.numpy as jnp
 import torch
 
-from dilithium_tpu import params as jparams
-from dilithium_tpu.ops import pack as jpack
-from dilithium_tpu.ops import rounding as jrounding
 from dilithium_tpu_torch import oracle, params
 from dilithium_tpu_torch.ops import pack, rounding
+from jax_reference import assert_matches_jax, jax_ref
 
 Q = 8380417
 RNG_SEED = 606
-
-
-def _eq(got: torch.Tensor, exp, what: str):
-    np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(exp).astype(np.int64),
-                                  err_msg=what)
 
 
 def _hint_blocks(p, rng):
@@ -56,50 +49,58 @@ def _hint_blocks(p, rng):
     return np.concatenate([np.stack(rows), np.stack(bad), rand, small])
 
 
+def _unpack_inputs(level):
+    """Encodings to unpack: oracle-made public keys and signatures beside
+    random bytes, the hint blocks of `_hint_blocks`, and signatures that
+    carry them. -> {"pks", "t1b", "zb", "hints", "sigs"} uint8."""
+    p = params.get_params(level)
+    rng = np.random.default_rng(RNG_SEED + level)
+    pk_o, sk_o = oracle.keygen(level, rng.integers(0, 256, (2, 32), dtype=np.uint8))
+    mus = rng.integers(0, 256, (2, 64), dtype=np.uint8)
+    sig_o, _ = oracle.sign(level, sk_o, mus)
+    pks = np.concatenate([pk_o, rng.integers(0, 256, (2, p.pk_bytes), dtype=np.uint8)])
+    zb = rng.integers(0, 256, (3, p.L, p.polyz_packedbytes), dtype=np.uint8)
+    zb[0] = 0  # z = gamma1 everywhere, the top of the range
+    hints = _hint_blocks(p, rng)
+    sigs = np.repeat(sig_o[:1], len(hints), axis=0)
+    sigs[:, -(p.omega + p.K):] = hints
+    sigs = np.concatenate([sig_o, sigs, rng.integers(0, 256, (2, p.sig_bytes), dtype=np.uint8)])
+    return {"pks": pks, "t1b": pks[:, 32:].reshape(-1, p.K, 320), "zb": zb, "hints": hints, "sigs": sigs}
+
+
 def test_unpackers_match_jax():
     """unpack_t1/z/pk/hints/sig against eager JAX: oracle-made keys and
     signatures, random bytes, and malformed hint blocks; ok and bitmaps
     equal on every row."""
+    ref = jax_ref("verify_codecs_unpackers")
     for level in (2, 3, 5):
-        p, jp = params.get_params(level), jparams.get_params(level)
-        rng = np.random.default_rng(RNG_SEED + level)
-        pk_o, sk_o = oracle.keygen(level, rng.integers(0, 256, (2, 32), dtype=np.uint8))
-        mus = rng.integers(0, 256, (2, 64), dtype=np.uint8)
-        sig_o, _ = oracle.sign(level, sk_o, mus)
-        pks = np.concatenate([pk_o, rng.integers(0, 256, (2, p.pk_bytes), dtype=np.uint8)])
+        p = params.get_params(level)
+        x = _unpack_inputs(level)
 
-        t1b = pks[:, 32:].reshape(-1, p.K, 320)
-        _eq(pack.unpack_t1(torch.from_numpy(t1b)), jpack.unpack_t1(jnp.asarray(t1b)), f"t1 level {level}")
-        rho, t1 = pack.unpack_pk(torch.from_numpy(pks), p)
-        rho_j, t1_j = jpack.unpack_pk(jnp.asarray(pks), jp)
-        _eq(rho, rho_j, f"pk rho level {level}")
-        _eq(t1, t1_j, f"pk t1 level {level}")
+        assert_matches_jax(pack.unpack_t1(torch.from_numpy(x["t1b"])), ref[f"t1 {level}"], f"t1 level {level}")
+        rho, t1 = pack.unpack_pk(torch.from_numpy(x["pks"]), p)
+        assert_matches_jax(rho, ref[f"pk rho {level}"], f"pk rho level {level}")
+        assert_matches_jax(t1, ref[f"pk t1 {level}"], f"pk t1 level {level}")
         assert t1.dtype == torch.int32
 
-        zb = rng.integers(0, 256, (3, p.L, p.polyz_packedbytes), dtype=np.uint8)
-        zb[0] = 0  # z = gamma1 everywhere, the top of the range
-        z = pack.unpack_z(torch.from_numpy(zb), p)
+        z = pack.unpack_z(torch.from_numpy(x["zb"]), p)
         assert z.dtype == torch.int32 and int(z.min()) >= 0 and int(z.max()) < Q
-        _eq(z, jpack.unpack_z(jnp.asarray(zb), jp), f"z level {level}")
+        assert_matches_jax(z, ref[f"z {level}"], f"z level {level}")
 
-        hints = _hint_blocks(p, rng)
+        hints = x["hints"]
         h, ok = pack.unpack_hints(torch.from_numpy(hints), p)
-        h_j, ok_j = jpack.unpack_hints(jnp.asarray(hints), jp)
         assert h.dtype == torch.uint8 and ok.dtype == torch.bool
-        _eq(ok, ok_j, f"hints ok level {level}")
-        _eq(h, h_j, f"hints bitmap level {level}")
+        assert_matches_jax(ok, ref[f"hints ok {level}"], f"hints ok level {level}")
+        assert_matches_jax(h, ref[f"hints bitmap {level}"], f"hints bitmap level {level}")
         assert bool(ok[:5].all()) and not bool(ok[5:15].any()), ok
         for row in hints[:4]:  # canonical blocks round-trip
             hh, _ = pack.unpack_hints(torch.from_numpy(row), p)
-            _eq(pack.pack_hints(hh, p), row, f"hint round trip level {level}")
+            np.testing.assert_array_equal(pack.pack_hints(hh, p).numpy(), row,
+                                          err_msg=f"hint round trip level {level}")
 
-        sigs = np.repeat(sig_o[:1], len(hints), axis=0)
-        sigs[:, -(p.omega + p.K):] = hints
-        sigs = np.concatenate([sig_o, sigs, rng.integers(0, 256, (2, p.sig_bytes), dtype=np.uint8)])
-        got = pack.unpack_sig(torch.from_numpy(sigs), p)
-        exp = jpack.unpack_sig(jnp.asarray(sigs), jp)
-        for name, g, e in zip(("c_tilde", "z", "h", "ok"), got, exp):
-            _eq(g, e, f"sig {name} level {level}")
+        got = pack.unpack_sig(torch.from_numpy(x["sigs"]), p)
+        for name, g in zip(("c_tilde", "z", "h", "ok"), got):
+            assert_matches_jax(g, ref[f"sig {name} {level}"], f"sig {name} level {level}")
         assert bool(got[3][:2].all())
 
 
@@ -115,21 +116,29 @@ def _rounding_inputs(p, rng):
     return np.concatenate([edges, rng.integers(0, Q, 4000)]).astype(np.int32)
 
 
+def _use_hint_inputs(level):
+    """-> (a int32: `_rounding_inputs` twice, h uint8: all ones, then
+    random bits)."""
+    p = params.get_params(level)
+    rng = np.random.default_rng(RNG_SEED + 10 + level)
+    a = _rounding_inputs(p, rng)
+    h = np.concatenate([np.ones(len(a), np.uint8), rng.integers(0, 2, len(a), dtype=np.uint8)])
+    return np.concatenate([a, a]), h
+
+
 def test_rounding_matches_jax():
     """highbits, lowbits and use_hint against eager JAX at levels 2, 3 and
     5, at the boundaries, with both of use_hint's wraps exercised."""
+    ref = jax_ref("verify_codecs_rounding")
     for level in (2, 3, 5):
-        p, jp = params.get_params(level), jparams.get_params(level)
-        rng = np.random.default_rng(RNG_SEED + 10 + level)
-        a = _rounding_inputs(p, rng)
-        a2 = np.concatenate([a, a])
-        h = np.concatenate([np.ones(len(a), np.uint8), rng.integers(0, 2, len(a), dtype=np.uint8)])
-        at, aj = torch.from_numpy(a2), jnp.asarray(a2.astype(np.uint32))
+        p = params.get_params(level)
+        a2, h = _use_hint_inputs(level)
+        at = torch.from_numpy(a2)
         hi, lo = rounding.highbits(at, p), rounding.lowbits(at, p)
-        _eq(hi, jrounding.highbits(aj, jp), f"highbits level {level}")
-        _eq(lo, jrounding.lowbits(aj, jp), f"lowbits level {level}")
+        assert_matches_jax(hi, ref[f"highbits {level}"], f"highbits level {level}")
+        assert_matches_jax(lo, ref[f"lowbits {level}"], f"lowbits level {level}")
         w1 = rounding.use_hint(torch.from_numpy(h), at, p)
-        _eq(w1, jrounding.use_hint(jnp.asarray(h.astype(np.uint32)), aj, jp), f"use_hint level {level}")
+        assert_matches_jax(w1, ref[f"use_hint {level}"], f"use_hint level {level}")
         top = 15 if p.gamma2 == (Q - 1) // 32 else 43
         hit = h.astype(bool)
         up_wrap = hit & (hi.numpy() == top) & (lo.numpy() > 0)
